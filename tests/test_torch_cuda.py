@@ -1,0 +1,138 @@
+"""The port on a CUDA card: the hand-written segment-aggregate kernels held
+against their plain PyTorch versions on the same card, and the quickstart
+slice on ``cuda`` held against the same slice on the CPU.
+
+Every test here is marked ``gpu`` and skips without a card (decided inside
+the ``cuda`` fixture).  The file imports neither JAX nor the JAX package, so
+it runs on a machine with a card and no JAX:
+``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
+
+Tolerances: min/max and sums of integer-valued floats must match exactly;
+gamma-valued sums agree to rtol 1e-5 (the kernels add in float32 with
+atomics, in an order that changes from run to run)."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import Query, Treant
+from repro_torch.core import semiring as sr
+from repro_torch.kernels.segment_aggregate import ops
+from repro_torch.kernels.segment_aggregate.ref import segment_aggregate_ref
+from repro_torch.relational import schema
+from repro_torch.relational.relation import mask_in
+
+pytestmark = pytest.mark.gpu
+
+SHAPES = [(64, 8, 1), (1000, 64, 3), (77, 13, 5), (4096, 300, 2),
+          (1 << 20, 100_000, 1), (1 << 20, 12, 8)]
+LEVEL_SPECS = [
+    [(64, 8, 1)],
+    [(64, 8, 2), (100, 13, 2), (256, 64, 2)],
+    [(30, 5, 1), (1000, 64, 4), (77, 13, 3)],
+    [(7, 3, 1), (9, 300, 2)],
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ (run these tests on the card)")
+    return torch.device("cuda")
+
+
+def _inputs(n, g, v, seed, device):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, g, n).astype(np.int32)
+    vals = rng.integers(-20, 21, (n, v)).astype(np.float32)
+    vals[rng.random(n) < 0.3] = 0.0  # identity-heavy rows, as σ and row padding make them
+    return torch.as_tensor(codes, device=device), torch.as_tensor(vals, device=device)
+
+
+def _as_op_input(vals, op):
+    if op == "sum":
+        return vals
+    return vals.masked_fill(vals == 0, float("inf") if op == "min" else float("-inf"))
+
+
+@pytest.mark.parametrize("n,g,v", SHAPES)
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_cuda_aggregate_matches_plain_version(cuda, n, g, v, op):
+    c, x = _inputs(n, g, v, n + g, cuda)
+    x = _as_op_input(x, op)
+    before = ops.LAUNCHES["segment_aggregate"]
+    got = ops.aggregate_op(c, x, g, op)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["segment_aggregate"] == before + 1
+    assert torch.equal(got, segment_aggregate_ref(c, x, g, op))
+
+
+def test_cuda_aggregate_gamma_sums_within_tolerance(cuda):
+    rng = np.random.default_rng(7)
+    c = torch.as_tensor(rng.integers(0, 12, 1 << 20).astype(np.int32), device=cuda)
+    x = torch.as_tensor(rng.gamma(2.0, 5000.0, (1 << 20, 3)).astype(np.float32), device=cuda)
+    got = ops.aggregate_op(c, x, 12, "sum")
+    torch.testing.assert_close(got, segment_aggregate_ref(c, x, 12, "sum"), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("specs", LEVEL_SPECS, ids=lambda s: f"{len(s)}msg")
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_cuda_level_aggregate_matches_plain_version(cuda, specs, op):
+    items = []
+    for i, (n, g, v) in enumerate(specs):
+        c, x = _inputs(n, g, v, i, cuda)
+        items.append((c, _as_op_input(x, op), g))
+    before = ops.LAUNCHES["level_segment_aggregate"]
+    got = ops.level_aggregate(items, op=op)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["level_segment_aggregate"] == before + 1
+    for (c, x, g), o in zip(items, got):
+        assert torch.equal(o, segment_aggregate_ref(c, x, g, op))
+
+
+def test_cuda_level_kernel_skips_pad_rows_and_fills_empty_segments(cuda):
+    codes = torch.tensor([0, -1, 2, -1, 0], dtype=torch.int32, device=cuda)
+    vals = torch.tensor([[1.0], [100.0], [3.0], [-100.0], [2.0]], device=cuda)
+    for op, want in (("sum", [3.0, 0.0, 3.0, 0.0]), ("min", [1.0, np.inf, 3.0, np.inf]),
+                     ("max", [2.0, -np.inf, 3.0, -np.inf])):
+        got = ops.level_segment_aggregate(codes, vals, 4, op)[:, 0].tolist()
+        assert got == want
+
+
+def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    codes = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ops.aggregate_op(codes, torch.zeros(8, 2, dtype=torch.float64, device=cuda), 3)
+    with pytest.raises(ValueError):
+        ops.aggregate_op(codes, torch.zeros(2, 8, device=cuda).t(), 3)
+    with pytest.raises(ValueError):
+        ops.aggregate_op(codes, torch.zeros(8, 2), 3)
+
+
+def test_cuda_quickstart_matches_cpu_and_launches_both_kernels(cuda):
+    cat = schema.salesforce(n_opp=20_000, n_user=500, n_camp=100, n_acc=200)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ops.reset_launches()
+        t = Treant(cat, ring=sr.SUM, device=dev)
+        total = Query.make(cat, ring="sum", measure=("Opp", "amount"))
+        pie = total.with_group_by("camp_type")
+        cal = [t.register_dashboard("total", total), t.register_dashboard("pie", pie)]
+        q1 = pie.with_predicate(mask_in(cat.domains()["role_name"], [1], attr="role_name"))
+        res = [t.interact("anna", "pie", q1)]
+        t.think_time("anna", "pie")
+        res.append(t.interact("anna", "pie", q1.add_group_by("title")))
+        qm = Query.make(cat, ring="tropical_max", measure=("Opp", "amount"), group_by=("stage",))
+        f, st = t.engine_for("tropical_max").execute(qm)
+        runs[dev] = (cal, res, (f, st), dict(ops.LAUNCHES))
+    (ccal, cres, cmax, claunch), (gcal, gres, gmax, glaunch) = runs["cpu"], runs["cuda"]
+    assert claunch == {"segment_aggregate": 0, "level_segment_aggregate": 0}
+    assert glaunch["segment_aggregate"] > 0 and glaunch["level_segment_aggregate"] > 0
+    for a, b in zip(ccal, gcal):
+        assert (a.messages_computed, a.messages_reused, a.calibration_dispatches) == (
+            b.messages_computed, b.messages_reused, b.calibration_dispatches)
+    for a, b in zip(cres, gres):
+        assert (a.stats.messages_computed, a.stats.messages_reused) == (
+            b.stats.messages_computed, b.stats.messages_reused)
+        torch.testing.assert_close(b.factor.field.cpu(), a.factor.field, rtol=1e-5, atol=0)
+    assert torch.equal(gmax[0].field.cpu(), cmax[0].field)
