@@ -15,17 +15,38 @@ CUDA toolkit.  Phases:
    with empty segments and -1 pad rows.  Min/max and sums of integer-valued
    data must match exactly; gamma-valued sums to rtol 1e-5.  Each shape is
    timed: kernel, memory bound at 3.35 TB/s, plain version, and one
-   ``index_add_`` / ``scatter_reduce_`` call on the same inputs;
+   ``index_add_`` / ``scatter_reduce_`` call on the same inputs.  Then
+   ``semiring_contract`` (float32, float16, σ mask) and ``tropical_contract``
+   (min, max, ±inf absent tuples) against their plain versions at
+   ``tests/test_kernels.py``'s shapes, on integer-valued data: exact; each
+   call timed beside its bound, its plain version and ``torch.matmul``;
 4. slice phase: the quickstart sequence at a deployment's size
    (``schema.salesforce`` with every table x50: 10M opportunities, Opp row
    bucket 2^24) on ``cuda``: two dashboard registrations, the role filter,
    think-time, the title drill-down, the SQL interaction and a MAX query.
    Launch counts are reset just before the timed run and read just after;
-   both kernels must have launched.  Answers must equal the same sequence
-   run by the port on the CPU and a numpy brute force over the join (rtol
-   1e-5 for float sums, exact for MAX), with equal message counts.  One
-   more run under ``torch.profiler`` gives device time by kernel;
-5. time each kernel on the inputs of its largest launch in the slice.
+   both segment kernels must have launched.  Answers must equal the same
+   sequence run by the port on the CPU and a numpy brute force over the
+   join (rtol 1e-5 for float sums, exact for MAX), with equal message
+   counts.  One more run under ``torch.profiler`` gives device time by kernel;
+5. dense phase: the same sequence on the same catalog with
+   ``dense_rows_threshold=100_000``, so every dimension bag (User, Role,
+   Camp, Acc) is dense.  Counts reset before, read after: both contract
+   kernels must have launched.  Answers must equal the slice phase's sparse
+   answers (rtol 1e-5 for sums, exact for MAX); message and plan counts must
+   equal the port's own dense run on the CPU.  Profiled like the slice, and
+   the dense ``User`` factor's ``project_to`` before each launch is timed;
+6. Fig 21 phase: ``schema.tpcds_star(n_sales=10_000_000)``, COUNT and
+   TROPICAL_MAX engines with and without the empty bag ``TimeStores``
+   (store_key, time_key): equal (store_key, time_key) answers, equal to a
+   numpy brute force, and the contract kernel of the ring launched;
+7. R̄ phase: one query with ``removed=("Acc",)`` on the dense Treant, held
+   against a numpy brute force over the join without Acc;
+8. the contract kernels at every shape the dense and Fig 21 phases
+   launched: checked against the plain version, timed beside their bound,
+   the plain version and ``torch.matmul`` (float32, TF32 off; kernel 4 has
+   no single PyTorch call);
+9. time each kernel on the inputs of its largest main-path launch.
 
 The line before the last is the ``nvidia-smi`` line, the one before it the
 ``{"kernels": [...]}`` record; the last line is
@@ -35,6 +56,7 @@ last line.  Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -44,7 +66,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
+FP32_FLOPS = 67e12                 # H100 SXM float32 rate outside the tensor cores
 SCALE = 50                         # x the generator's default table sizes
+DENSE_ROWS = 100_000               # every x50 dimension table is at most this
 KERNEL_SOURCES = {
     "segment_aggregate": (
         "src/repro_torch/kernels/segment_aggregate/csrc/segment_aggregate.cu",
@@ -54,7 +78,17 @@ KERNEL_SOURCES = {
         "src/repro_torch/kernels/segment_aggregate/csrc/level_segment_aggregate.cu",
         "src/repro/kernels/segment_aggregate/kernel.py:125",
     ),
+    "semiring_contract": (
+        "src/repro_torch/kernels/semiring_contract/csrc/semiring_contract.cu",
+        "src/repro/kernels/semiring_contract/kernel.py:36",
+    ),
+    "tropical_contract": (
+        "src/repro_torch/kernels/tropical_contract/csrc/tropical_contract.cu",
+        "src/repro/kernels/tropical_contract/kernel.py:37",
+    ),
 }
+SEGMENT = ("segment_aggregate", "level_segment_aggregate")
+CONTRACT = ("semiring_contract", "tropical_contract")
 
 
 class SmokeFailure(Exception):
@@ -90,6 +124,19 @@ def bound_ms(n: int, v: int, g: int) -> float:
     return (n * 4 + n * v * 4 + g * v * 4) / HBM_BYTES_PER_S * 1e3
 
 
+def contract_bound(g: int, b: int, a: int, in_bytes: int = 4, masked: bool = False,
+                   tropical: bool = False) -> tuple[float, str]:
+    """Least time on the card for one (G, B) x (B, A) contraction: the larger
+    of the bytes (inputs read once, the float32 output written once) at the
+    device memory rate and the operations at the float32 rate: 2·G·B·A flops
+    at 67 TFLOP/s for the sum (G·B·A FMAs), 2·G·B·A adds and min/max at half
+    that rate for the tropical product."""
+    nbytes = (g * b + b * a) * in_bytes + g * a * 4 + (b * 4 if masked else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * g * b * a / (FP32_FLOPS / 2 if tropical else FP32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def library_call(codes, values, g, op):
     """One PyTorch call computing the same function (never used by the port)."""
     import torch
@@ -119,6 +166,42 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def reset_launches(K) -> None:
+    for ops in (K.seg_ops, K.sc_ops, K.tc_ops):
+        ops.reset_launches()
+
+
+def read_launches(K) -> dict:
+    return {**K.seg_ops.LAUNCHES, **K.sc_ops.LAUNCHES, **K.tc_ops.LAUNCHES}
+
+
+@contextlib.contextmanager
+def recording_contracts(K, captured: dict, shapes: list):
+    """Record every contract-kernel launch's shape, and keep one copy of the
+    inputs of each distinct (kernel, shape, op), while the block runs."""
+    real_sc, real_tc = K.sc_kernel.launch, K.tc_kernel.launch
+
+    def keep(name, m, r, op, mask=None):
+        key = (name, *m.shape, r.shape[1], str(m.dtype), op)
+        shapes.append(key)
+        if key not in captured:
+            captured[key] = (m.clone(), r.clone(), op, None if mask is None else mask.clone())
+
+    def sc_launch(m, r, mask, out):
+        keep("semiring_contract", m, r, "sum", mask)
+        real_sc(m, r, mask, out)
+
+    def tc_launch(m, r, out, is_min):
+        keep("tropical_contract", m, r, "min" if is_min else "max")
+        real_tc(m, r, out, is_min)
+
+    K.sc_kernel.launch, K.tc_kernel.launch = sc_launch, tc_launch
+    try:
+        yield
+    finally:
+        K.sc_kernel.launch, K.tc_kernel.launch = real_sc, real_tc
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +289,77 @@ def kernel_phase(torch, ops, ref, report: dict) -> None:
     report["kernel_phase"] = rows
 
 
+def contract_kernel_phase(torch, K, report: dict) -> None:
+    """Kernels 3 and 4 against their plain versions at ``tests/test_kernels.py``'s
+    shapes, each call timed.  Integer-valued data in [-20, 20] is exact in
+    float16 too, and every product and sum stays an integer below 2^24, so
+    the sum must match exactly; min/max are exact in any order."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    shapes = [(8, 8, 8), (64, 64, 64), (100, 70, 130), (256, 128, 200), (1, 300, 5)]
+    rows = []
+    for g, b, a in shapes:
+        m = torch.randint(-20, 21, (g, b), generator=gen, device=dev).float()
+        r = torch.randint(-20, 21, (b, a), generator=gen, device=dev).float()
+        mask = (torch.rand(b, generator=gen, device=dev) > 0.5).float()
+        for dtype in (torch.float32, torch.float16):
+            for mk in (None, mask):
+                rows.append(contract_row(torch, K, "semiring_contract", m.to(dtype),
+                                         r.to(dtype), "sum", mk))
+        for op in ("min", "max"):
+            ident = float("inf") if op == "min" else float("-inf")
+            mi = m.masked_fill(torch.rand(m.shape, generator=gen, device=dev) < 0.3, ident)
+            rows.append(contract_row(torch, K, "tropical_contract", mi, r, op))
+    print_contract_rows(rows)
+    report["contract_kernel_phase"] = rows
+
+
+def contract_run(K, name, m, r, op, mask=None):
+    if name == "semiring_contract":
+        return (lambda: K.sc_ops.contract_op(m, r, mask),
+                lambda: K.sc_ref.semiring_contract_ref(m, r, mask))
+    is_min = op == "min"
+    return (lambda: K.tc_ops.contract_op(m, r, is_min=is_min),
+            lambda: K.tc_ref.tropical_contract_ref(m, r, is_min))
+
+
+def contract_row(torch, K, name, m, r, op, mask=None, exact=True) -> dict:
+    """Check one contract-kernel call against its plain version (exactly, or
+    to rtol 1e-5 for float sums in another order), then time the kernel, the
+    plain version and, for a float32 product without σ mask, one
+    ``torch.matmul`` (the port never calls it; kernel 4 has no single
+    PyTorch call).  The bound comes from the shapes."""
+    run, plain = contract_run(K, name, m, r, op, mask)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    (g, b), a = m.shape, r.shape[1]
+    what = f"{name} {op} {m.dtype} mask={mask is not None} ({g}, {b}) x ({b}, {a})"
+    check(not bool(torch.isnan(got).any()), f"{what} gave NaN")
+    if exact:
+        check(torch.equal(got, want), f"{what} disagrees with its plain version")
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    library = None
+    if name == "semiring_contract" and mask is None and m.dtype == torch.float32:
+        library = time_ms(lambda: torch.matmul(m, r))
+    bound, by = contract_bound(g, b, a, m.element_size(), mask is not None,
+                               name == "tropical_contract")
+    return dict(kernel=name, g=g, b=b, a=a, op=op, dtype=str(m.dtype).replace("torch.", ""),
+                masked=mask is not None, ms=time_ms(run), plain_ms=time_ms(plain, 3, 3),
+                library_ms=library, bound_ms=bound, bound_by=by,
+                max_abs_err=max_abs_err(got, want))
+
+
+def print_contract_rows(rows: list[dict]) -> None:
+    for r in rows:
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        mask = "mask" if r["masked"] else "    "
+        print(f"  {r['kernel']:18s} {r['op']:3s} {r['dtype']:7s} {mask} "
+              f"({r['g']}, {r['b']}) x ({r['b']}, {r['a']})  kernel {r['ms']:.4f} ms  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  "
+              f"library {lib}", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the quickstart slice at a deployment's size
 # ---------------------------------------------------------------------------
@@ -214,15 +368,16 @@ SQL = ("SELECT camp_type, SUM(amount) FROM Opp WHERE state IN (1,2,3) "
        "GROUP BY camp_type")
 
 
-def quickstart(torch, rt, cat, device: str) -> dict:
-    """The quickstart's calls on one device; returns answers, counts, times."""
+def quickstart(torch, rt, cat, device: str, **treant_kw) -> dict:
+    """The quickstart's calls on one device; returns answers, counts, times
+    (and the Treant, for the phases that go on with it)."""
     Treant, Query, sr, mask_in, parse = rt
 
     def sync():
         if device == "cuda":
             torch.cuda.synchronize()
 
-    t = Treant(cat, ring=sr.SUM, device=device)
+    t = Treant(cat, ring=sr.SUM, device=device, **treant_kw)
     total = Query.make(cat, ring="sum", measure=("Opp", "amount"))
     pie = total.with_group_by("camp_type")
     t0 = time.perf_counter()
@@ -251,7 +406,7 @@ def quickstart(torch, rt, cat, device: str) -> dict:
     return dict(
         answers=answers, counts=counts, offline_s=offline_s, think_s=think_s,
         latency_s={name: r.latency_s for name, r in res} | {"max_by_stage": max_s},
-        plans=t.cache_stats()["plans"],
+        plans=t.cache_stats()["plans"], treant=t,
     )
 
 
@@ -276,7 +431,7 @@ def brute_force(np, cat) -> dict:
     }
 
 
-def slice_phase(torch, np, ops, kernel, rt, schema, report: dict) -> dict:
+def slice_phase(torch, np, K, rt, schema, report: dict) -> dict:
     t0 = time.perf_counter()
     cat = schema.salesforce(n_opp=200_000 * SCALE, n_user=2_000 * SCALE,
                             n_camp=500 * SCALE, n_acc=1_000 * SCALE)
@@ -287,6 +442,7 @@ def slice_phase(torch, np, ops, kernel, rt, schema, report: dict) -> dict:
     # inputs of each kernel's largest launch for the timing phase
     captured: dict = {}
     shapes: list = []
+    kernel = K.seg_kernel
     real_launch = kernel.launch
 
     def recording_launch(name, codes, values, out, op):
@@ -300,11 +456,11 @@ def slice_phase(torch, np, ops, kernel, rt, schema, report: dict) -> dict:
         quickstart(torch, rt, cat, "cuda")
     finally:
         kernel.launch = real_launch
-    ops.reset_launches()
+    reset_launches(K)
     gpu = quickstart(torch, rt, cat, "cuda")
-    launches = dict(ops.LAUNCHES)
+    launches = read_launches(K)
     print(f"slice: launches on the main path {launches}", flush=True)
-    for name in KERNEL_SOURCES:
+    for name in SEGMENT:
         check(launches[name] > 0, f"{name} never launched on the main path")
     t0 = time.perf_counter()
     cpu = quickstart(torch, rt, cat, "cpu")
@@ -321,15 +477,8 @@ def slice_phase(torch, np, ops, kernel, rt, schema, report: dict) -> dict:
         else:
             torch.testing.assert_close(g, c, rtol=1e-5, atol=0)
             np.testing.assert_allclose(g.numpy(), ref_answer, rtol=1e-5)
-    for key in ("calibration_dispatches", "fused_level_launches", "kernel_execs",
-                "plans_built", "plan_hits"):
-        check(gpu["plans"][key] == cpu["plans"][key], f"plan counter {key} differs")
-    print(f"slice: offline calibration {gpu['offline_s'] * 1e3:.1f} ms on cuda "
-          f"({cpu['offline_s'] * 1e3:.1f} ms on the CPU); think-time {gpu['think_s'] * 1e3:.1f} ms",
-          flush=True)
-    for name, s in gpu["latency_s"].items():
-        print(f"slice: {name:20s} {s * 1e3:8.3f} ms on cuda  "
-              f"({cpu['latency_s'][name] * 1e3:.3f} ms on the CPU)", flush=True)
+    check_plan_counters(gpu, cpu)
+    print_latencies("slice", gpu, cpu)
     print(f"slice: answers equal the CPU run and the numpy brute force; counts equal "
           f"{gpu['counts']}; CPU run took {cpu_s:.1f} s", flush=True)
     report["slice"] = dict(
@@ -340,11 +489,27 @@ def slice_phase(torch, np, ops, kernel, rt, schema, report: dict) -> dict:
         cpu_latency_ms={k: v * 1e3 for k, v in cpu["latency_s"].items()},
         plans=gpu["plans"], launch_shapes=shapes,
     )
-    profile_phase(torch, rt, cat, report)
-    return dict(captured=captured, launches=launches)
+    profile_phase(torch, "slice", lambda: quickstart(torch, rt, cat, "cuda"), report)
+    return dict(cat=cat, captured=captured, launches=launches, answers=gpu["answers"])
 
 
-def profile_phase(torch, rt, cat, report: dict) -> None:
+def check_plan_counters(gpu: dict, cpu: dict) -> None:
+    for key in ("calibration_dispatches", "fused_level_launches", "kernel_execs",
+                "plans_built", "plan_hits"):
+        check(gpu["plans"][key] == cpu["plans"][key],
+              f"plan counter {key} differs: cuda {gpu['plans'][key]} cpu {cpu['plans'][key]}")
+
+
+def print_latencies(label: str, gpu: dict, cpu: dict) -> None:
+    print(f"{label}: offline calibration {gpu['offline_s'] * 1e3:.1f} ms on cuda "
+          f"({cpu['offline_s'] * 1e3:.1f} ms on the CPU); think-time "
+          f"{gpu['think_s'] * 1e3:.1f} ms", flush=True)
+    for name, s in gpu["latency_s"].items():
+        print(f"{label}: {name:20s} {s * 1e3:8.3f} ms on cuda  "
+              f"({cpu['latency_s'][name] * 1e3:.3f} ms on the CPU)", flush=True)
+
+
+def profile_phase(torch, label: str, run, report: dict) -> None:
     """One more run on the card under ``torch.profiler``: device time by
     kernel (and copy) and the device's busy share of the run's wall time
     (the profiler slows the host, so the share is a lower bound)."""
@@ -353,7 +518,7 @@ def profile_phase(torch, rt, cat, report: dict) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        quickstart(torch, rt, cat, "cuda")
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
@@ -371,24 +536,202 @@ def profile_phase(torch, rt, cat, report: dict) -> None:
             busy_us, reach = busy_us + end - reach, end
     rows = sorted(({"name": k, "device_ms": ms, "calls": n} for k, (ms, n) in by_name.items()),
                   key=lambda r: -r["device_ms"])
-    report["profile"] = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3, top=rows[:15])
+    # the 20 longest, and every launch of the port's own kernels
+    kept = rows[:20] + [r for r in rows[20:] if any(k in r["name"] for k in KERNEL_SOURCES)]
+    report.setdefault("profile", {})[label] = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+                                                   top=kept)
     if not rows:
-        print("profile: the trace holds no device time (busy share not measured)", flush=True)
-        return
-    print(f"profile: quickstart on cuda {wall_ms:.1f} ms wall under the profiler, device busy "
-          f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e3 / wall_ms:.1f}%)", flush=True)
-    for r in rows[:8]:
-        print(f"profile:   {r['device_ms']:8.3f} ms  {r['calls']:5d} calls  {r['name'][:90]}",
+        print(f"profile {label}: the trace holds no device time (busy share not measured)",
               flush=True)
+        return
+    print(f"profile {label}: {wall_ms:.1f} ms wall under the profiler, device busy "
+          f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e3 / wall_ms:.1f}%)", flush=True)
+    for r in rows[:10]:
+        print(f"profile {label}:   {r['device_ms']:8.3f} ms  {r['calls']:5d} calls  "
+              f"{r['name'][:90]}", flush=True)
 
 
-def kernel_records(torch, ops, ref, sliced: dict) -> list[dict]:
+# ---------------------------------------------------------------------------
+# phase 5: the same sequence with every dimension bag dense
+# ---------------------------------------------------------------------------
+
+def dense_phase(torch, np, K, rt, sliced: dict, report: dict) -> dict:
+    cat = sliced["cat"]
+    dims = {n: cat.get(n).num_rows for n in cat.names() if n != "Opp"}
+    check(max(dims.values()) <= DENSE_ROWS < cat.get("Opp").num_rows,
+          f"dense phase needs every dimension table dense and Opp sparse: {dims}")
+    captured: dict = {}
+    shapes: list = []
+    with recording_contracts(K, captured, shapes):
+        quickstart(torch, rt, cat, "cuda", dense_rows_threshold=DENSE_ROWS)
+    reset_launches(K)
+    gpu = quickstart(torch, rt, cat, "cuda", dense_rows_threshold=DENSE_ROWS)
+    launches = read_launches(K)
+    print(f"dense: launches on the dense path {launches}", flush=True)
+    for name in CONTRACT:
+        check(launches[name] > 0, f"{name} never launched on the dense path")
+    t0 = time.perf_counter()
+    cpu = quickstart(torch, rt, cat, "cpu", dense_rows_threshold=DENSE_ROWS)
+    cpu_s = time.perf_counter() - t0
+    check(gpu["counts"] == cpu["counts"],
+          f"dense message counts differ: cuda {gpu['counts']} cpu {cpu['counts']}")
+    check_plan_counters(gpu, cpu)
+    for name, sparse in sliced["answers"].items():
+        g, c = gpu["answers"][name], cpu["answers"][name]
+        check(bool(torch.isfinite(g).all()), f"dense {name}: non-finite answer on cuda")
+        if name == "max_by_stage":
+            check(torch.equal(g, sparse) and torch.equal(g, c), f"dense {name}: MAX differs")
+        else:
+            torch.testing.assert_close(g, sparse, rtol=1e-5, atol=0)
+            torch.testing.assert_close(g, c, rtol=1e-5, atol=0)
+    print_latencies("dense", gpu, cpu)
+    print(f"dense: answers equal the sparse slice and the CPU run; counts equal "
+          f"{gpu['counts']}; CPU run took {cpu_s:.1f} s", flush=True)
+    t = gpu["treant"]
+    project = project_times(np, t)
+    for shape, ms in project.items():
+        print(f"dense: User factor project_to + contiguous to {shape}: {ms:.4f} ms", flush=True)
+    report["dense"] = dict(
+        dense_rows_threshold=DENSE_ROWS, dims=dims, launches=launches, counts=gpu["counts"],
+        offline_ms=gpu["offline_s"] * 1e3, think_ms=gpu["think_s"] * 1e3,
+        latency_ms={k: v * 1e3 for k, v in gpu["latency_s"].items()},
+        cpu_offline_ms=cpu["offline_s"] * 1e3,
+        cpu_latency_ms={k: v * 1e3 for k, v in cpu["latency_s"].items()},
+        plans=gpu["plans"], launch_shapes=shapes, project_to_ms=project,
+    )
+    profile_phase(torch, "dense", lambda: quickstart(
+        torch, rt, cat, "cuda", dense_rows_threshold=DENSE_ROWS), report)
+    return dict(captured=captured, launches=launches, treant=t)
+
+
+def project_times(np, t) -> dict:
+    """Time the plain-torch ``project_to`` that reshapes the dense User
+    factor into the contract kernel's M before each launch."""
+    user = t.catalog.get("User")
+    f = t.engine.plans._factors.get(("base", user.key, "sum", None))
+    check(f is not None, "the dense User factor is not in the plan cache")
+    d = f.domains
+    out = {}
+    for keep in (("role_id", "user_id"), ("role_id", "title", "user_id"),
+                 ("user_id", "role_id"), ("user_id", "title", "role_id")):
+        rows = int(np.prod([d[a] for a in keep[:-1]]))
+        out["x".join(keep)] = time_ms(
+            lambda: f.project_to(keep).field.reshape(rows, d[keep[-1]]).contiguous(), 5, 3)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: Fig 21, the empty-bag shortcut view on tpcds_star
+# ---------------------------------------------------------------------------
+
+def fig21_phase(torch, np, K, rt2, schema, report: dict) -> dict:
+    """Returns the contract-kernel inputs captured in the warm-up runs."""
+    CJTEngine, Query, sr, insert_empty_bag, jt_from_catalog = rt2
+    t0 = time.perf_counter()
+    cat = schema.tpcds_star(n_sales=10_000_000)
+    fact = cat.get("Store_Sales")
+    print(f"fig21: tpcds_star with {fact.num_rows} sales (row bucket {fact.row_bucket}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    jt = jt_from_catalog(cat)
+    jt2 = insert_empty_bag(jt, "TimeStores", ("store_key", "time_key"), host="bag:Store_Sales",
+                           reroute=["bag:Stores", "bag:Time"])
+    sk, tk = fact.codes["store_key"], fact.codes["time_key"]
+    n_s, n_t = cat.domains()["store_key"], cat.domains()["time_key"]
+    flat = sk.astype(np.int64) * n_t + tk
+    mx = np.full(n_s * n_t, -np.inf, np.float32)
+    np.maximum.at(mx, flat, fact.measures["sales_price"])
+    want = {"count": np.bincount(flat, minlength=n_s * n_t).reshape(n_s, n_t).astype(np.float32),
+            "tropical_max": mx.reshape(n_s, n_t)}
+    measure = {"count": None, "tropical_max": ("Store_Sales", "sales_price")}
+    captured: dict = {}
+    shapes: list = []
+    out = {}
+    for ring in ("count", "tropical_max"):
+        q = Query.make(cat, ring=ring, measure=measure[ring])
+        qg = q.with_group_by("store_key", "time_key")
+        res = {}
+        for label, tree in (("without", jt), ("with", jt2)):
+            with recording_contracts(K, captured, shapes):  # warm-up
+                e = CJTEngine(tree, cat, sr.get(ring), device="cuda")
+                e.calibrate(q)
+                e.execute(qg)
+            reset_launches(K)
+            e = CJTEngine(tree, cat, sr.get(ring), device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.calibrate(q)
+            torch.cuda.synchronize()
+            build_ms = (time.perf_counter() - t0) * 1e3
+            e.execute(qg)  # first run after calibration, then the timed one
+            t0 = time.perf_counter()
+            f, st = e.execute(qg)
+            query_ms = (time.perf_counter() - t0) * 1e3
+            res[label] = (f.field.cpu(), build_ms, query_ms, read_launches(K),
+                          st.messages_computed)
+        (f0, b0, q0, l0, _), (f1, b1, q1, l1, c1) = res["without"], res["with"]
+        check(torch.equal(f0, f1), f"fig21 {ring}: answers with and without the empty bag differ")
+        check(np.array_equal(f1.numpy(), want[ring]), f"fig21 {ring}: differs from numpy")
+        kernel = "semiring_contract" if ring == "count" else "tropical_contract"
+        check(l1[kernel] > 0, f"fig21 {ring}: {kernel} never launched with the empty bag")
+        out[ring] = dict(build_ms_without=b0, build_ms_with=b1, query_ms_without=q0,
+                         query_ms_with=q1, launches_without=l0, launches_with=l1,
+                         computed_with=c1)
+        print(f"fig21 {ring}: calibrate {b0:.1f} ms without the empty bag, {b1:.1f} ms with; "
+              f"(store_key, time_key) query {q0:.3f} ms without, {q1:.3f} ms with; "
+              f"launches with the bag {l1}", flush=True)
+    print("fig21: answers equal with and without the bag and the numpy brute force", flush=True)
+    report["fig21"] = dict(n_sales=fact.num_rows, rings=out, launch_shapes=shapes)
+    return captured
+
+
+# ---------------------------------------------------------------------------
+# phase 7: R̄ on the dense Treant
+# ---------------------------------------------------------------------------
+
+def rbar_phase(torch, np, Query, t, report: dict) -> None:
+    cat = t.catalog
+    q = Query.make(cat, ring="sum", measure=("Opp", "amount"), group_by=("camp_type",),
+                   removed=("Acc",))
+    r = t.interact("anna", "pipeline_by_campaign", q)
+    opp, camp = cat.get("Opp"), cat.get("Camp")
+    ctype = camp.codes["camp_type"][opp.codes["camp_id"]]
+    want = np.bincount(ctype, opp.measures["amount"].astype(np.float64), 8)
+    got = r.factor.field.cpu()
+    check(bool(torch.isfinite(got).all()), "R̄: non-finite answer")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    print(f"rbar: removed=('Acc',) on the dense Treant equals the numpy brute force; "
+          f"{r.latency_s * 1e3:.3f} ms, {r.stats.messages_computed} messages computed",
+          flush=True)
+    report["rbar"] = dict(latency_ms=r.latency_s * 1e3, computed=r.stats.messages_computed)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the contract kernels at every shape the dense paths launched
+# ---------------------------------------------------------------------------
+
+def contract_shapes_phase(torch, K, captured: dict, report: dict) -> list[dict]:
+    rows = [contract_row(torch, K, name, m, r, op, mask, exact=name == "tropical_contract")
+            for (name, *_), (m, r, op, mask) in sorted(captured.items(),
+                                                       key=lambda kv: str(kv[0]))]
+    print_contract_rows(rows)
+    report["contract_shapes"] = rows
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 9: one record per kernel
+# ---------------------------------------------------------------------------
+
+def kernel_records(torch, K, sliced: dict, contract_rows: list[dict],
+                   dense: dict) -> list[dict]:
     """Time each kernel on the inputs of its largest main-path launch."""
+    ops, ref = K.seg_ops, K.seg_ref
     wrappers = {"segment_aggregate": (ops.aggregate_op, ref.segment_aggregate_ref),
                 "level_segment_aggregate": (ops.level_segment_aggregate,
                                             ref.level_segment_aggregate_ref)}
     records = []
-    for name, (source, replaces) in KERNEL_SOURCES.items():
+    for name in SEGMENT:
+        source, replaces = KERNEL_SOURCES[name]
         codes, values, g, op = sliced["captured"][name]
         run, plain = wrappers[name]
         got, want = run(codes, values, g, op), plain(codes, values, g, op)
@@ -407,6 +750,20 @@ def kernel_records(torch, ops, ref, sliced: dict) -> list[dict]:
             "bound_ms": bound_ms(n, v, g), "bound_by": "bytes",
             "library_ms": time_ms(library_call(codes, values, g, op)),
             "shape": {"n": n, "v": v, "g": g, "op": op},
+        })
+    for name in CONTRACT:
+        source, replaces = KERNEL_SOURCES[name]
+        mine = [r for r in contract_rows if r["kernel"] == name and
+                any(k[0] == name and k[1:4] == (r["g"], r["b"], r["a"])
+                    for k in dense["captured"])]
+        check(bool(mine), f"{name}: no dense-path launch to time")
+        top = max(mine, key=lambda r: (r["g"] * r["b"] + r["b"] * r["a"], r["op"]))
+        records.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": dense["launches"][name], "max_abs_err": top["max_abs_err"],
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "shape": {"g": top["g"], "b": top["b"], "a": top["a"], "op": top["op"]},
         })
     return records
 
@@ -427,33 +784,59 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import types
+
     import numpy as np
 
-    from repro_torch.core import Query, Treant
+    from repro_torch.core import CJTEngine, Query, Treant, insert_empty_bag, jt_from_catalog
     from repro_torch.core import semiring as sr
-    from repro_torch.kernels.segment_aggregate import kernel, ops, ref
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_aggregate import kernel as seg_kernel
+    from repro_torch.kernels.segment_aggregate import ops as seg_ops
+    from repro_torch.kernels.segment_aggregate import ref as seg_ref
+    from repro_torch.kernels.semiring_contract import kernel as sc_kernel
+    from repro_torch.kernels.semiring_contract import ops as sc_ops
+    from repro_torch.kernels.semiring_contract import ref as sc_ref
+    from repro_torch.kernels.tropical_contract import kernel as tc_kernel
+    from repro_torch.kernels.tropical_contract import ops as tc_ops
+    from repro_torch.kernels.tropical_contract import ref as tc_ref
     from repro_torch.relational import schema
     from repro_torch.relational.relation import mask_in
     from repro_torch.relational.sql import parse
 
+    K = types.SimpleNamespace(
+        seg_kernel=seg_kernel, seg_ops=seg_ops, seg_ref=seg_ref, sc_kernel=sc_kernel,
+        sc_ops=sc_ops, sc_ref=sc_ref, tc_kernel=tc_kernel, tc_ops=tc_ops, tc_ref=tc_ref,
+    )
     report: dict = {}
+    started = time.perf_counter()
     try:
         card = card_line()
         print(f"card: {card}", flush=True)
         report["card"] = card
         t0 = time.perf_counter()
-        kernel.build()
+        build.build()
         report["build_s"] = time.perf_counter() - t0
         print(f"build: {report['build_s']:.1f} s", flush=True)
         print("kernel phase:", flush=True)
-        kernel_phase(torch, ops, ref, report)
-        sliced = slice_phase(torch, np, ops, kernel, (Treant, Query, sr, mask_in, parse),
-                             schema, report)
-        records = kernel_records(torch, ops, ref, sliced)
+        kernel_phase(torch, seg_ops, seg_ref, report)
+        contract_kernel_phase(torch, K, report)
+        rt = (Treant, Query, sr, mask_in, parse)
+        sliced = slice_phase(torch, np, K, rt, schema, report)
+        dense = dense_phase(torch, np, K, rt, sliced, report)
+        fig21 = fig21_phase(torch, np, K, (CJTEngine, Query, sr, insert_empty_bag,
+                                           jt_from_catalog), schema, report)
+        rbar_phase(torch, np, Query, dense["treant"], report)
+        print("contract kernels at the dense paths' shapes:", flush=True)
+        contract_rows = contract_shapes_phase(
+            torch, K, {**dense["captured"], **fig21}, report)
+        records = kernel_records(torch, K, sliced, contract_rows, dense)
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     report["kernels"] = records
+    report["total_s"] = time.perf_counter() - started
+    print(f"total: {report['total_s']:.1f} s", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))

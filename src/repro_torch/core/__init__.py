@@ -19,6 +19,7 @@ _EXPORTS = {
     "build_join_tree": "hypertree",
     "jt_from_catalog": "hypertree",
     "is_acyclic": "hypertree",
+    "insert_empty_bag": "hypertree",
     "CyclicSchemaError": "hypertree",
     "Query": "query",
     "CalibrationPlan": "calibration",

@@ -20,12 +20,17 @@ This is the algorithmic core of the paper (§3):
   message carrying extra γ attrs is narrowed by ⊕-marginalization instead of
   recomputed.
 
-A bag holding exactly one relation takes the factorized sparse path (gather
-incoming messages at row codes, ⊗ rowwise, segment-⊕ — the DBMS
-hash-join/aggregate re-expressed as the segment-aggregate kernels).  Bags
-with no relation or with several take the dense path, which is not ported
-yet: they raise ``NotImplementedError``.  Delta maintenance, batched
-fan-out (``execute_many``) and custom lifts are not ported yet either.
+A bag holding exactly one relation with more than ``dense_rows_threshold``
+rows takes the factorized sparse path (gather incoming messages at row
+codes, ⊗ rowwise, segment-⊕ — the DBMS hash-join/aggregate re-expressed as
+the segment-aggregate kernels).  Every other bag — an empty bag (the
+paper's Appendix B shortcut views), a bag emptied by R̄ (``removed``), a bag
+of several relations, or a relation of at most ``dense_rows_threshold``
+rows — takes the dense path: densified base factors ⊗ incoming messages,
+contracted by ``PlanCache.run_dense`` (the semiring_contract and
+tropical_contract kernels for two-factor matrix products).  Delta
+maintenance, batched fan-out (``execute_many``) and custom lifts are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ import torch
 
 from repro_torch.relational.relation import LRU, Catalog, Relation, lift_rows
 from . import semiring as sr
-from .factor import Factor
+from .factor import Factor, contract
 from .hypertree import JTree
 from .plans import (
     AbsorbItem,
@@ -53,11 +58,6 @@ from .plans import (
     resolve_device,
 )
 from .query import Query
-
-DENSE_PATH_TODO = (
-    "bags holding no relation or several relations take the dense-plan path, "
-    "which is not ported yet (ROADMAP Queue 1 item 12)"
-)
 
 
 def _h(*parts: str) -> str:
@@ -422,9 +422,12 @@ class CJTEngine:
     """Query execution and calibration over one JT (one dashboard join graph).
 
     ``device`` (default ``cuda``; raises without a card unless ``"cpu"`` is
-    passed) holds the lifts, codes and messages.  ``use_plans=False`` runs
-    the plain reference contraction (``_sparse_reference``) instead of the
-    plan cache; ``batch_calibration=False`` calibrates edge by edge.
+    passed) holds the lifts, codes and messages.  Relations of at most
+    ``dense_rows_threshold`` rows are densified (dense contraction path);
+    bigger ones take the sparse segment path.  ``use_plans=False`` runs the
+    plain reference contractions (``_sparse_reference``, ``factor.contract``)
+    instead of the plan cache; ``batch_calibration=False`` calibrates edge
+    by edge.  Custom ``lifts`` are not ported (ROADMAP Queue 1 item 16).
     """
 
     def __init__(
@@ -432,16 +435,23 @@ class CJTEngine:
         jt: JTree,
         catalog: Catalog,
         ring: sr.Semiring,
+        lifts=None,
         store: MessageStore | None = None,
+        dense_rows_threshold: int = 0,
         use_plans: bool = True,
         plan_cache: PlanCache | None = None,
         batch_calibration: bool = True,
         device: torch.device | str | None = None,
     ):
+        if lifts:
+            raise NotImplementedError(
+                "custom lifts are not ported yet (ROADMAP Queue 1 item 16)"
+            )
         self.jt = jt
         self.catalog = catalog
         self.ring = ring
         self.store = store if store is not None else MessageStore()
+        self.dense_rows_threshold = dense_rows_threshold
         if plan_cache is not None:
             if plan_cache.ring.name != ring.name:
                 raise ValueError(
@@ -582,9 +592,10 @@ class CJTEngine:
         rels = self._bag_rels(q, bag)
         if stats:
             stats.rows_scanned += sum(r.num_rows for r in rels)
-        if len(rels) != 1 or rels[0].num_rows == 0:
-            raise NotImplementedError(f"{bag}: {DENSE_PATH_TODO}")
-        return self._sparse_bag(q, rels[0], incoming, placement.get(bag, ()), out_attrs, stats)
+        preds = placement.get(bag, ())
+        if len(rels) == 1 and rels[0].num_rows > self.dense_rows_threshold:
+            return self._sparse_bag(q, rels[0], incoming, preds, out_attrs, stats)
+        return self._dense_bag(q, rels, incoming, preds, out_attrs, stats)
 
     def _lift(self, q: Query, rel: Relation) -> sr.Field:
         if self.plans is not None:
@@ -611,6 +622,32 @@ class CJTEngine:
     def _lift_impl(self, q: Query, rel: Relation) -> sr.Field:
         measure = q.measure[1] if q.measure and q.measure[0] == rel.name else None
         return lift_rows(rel, self.ring, measure, self.device)
+
+    def _base_factor(self, q: Query, rel: Relation) -> Factor:
+        """Densified base relation on the engine's device, cached when plans
+        are enabled."""
+        ring = self.ring
+        measure = q.measure[1] if q.measure and q.measure[0] == rel.name else None
+        if self.plans is None:
+            return rel.to_factor(ring, measure, self.device)
+        key = ("base", rel.key, ring.name, measure)
+        return self.plans.factor_cached(key, lambda: rel.to_factor(ring, measure, self.device))
+
+    def _dense_bag(self, q, rels, incoming, preds, out_attrs, stats=None) -> Factor:
+        """Dense path: densified relations ⊗ incoming messages, σ, ⊕ to
+        ``out_attrs``; an empty bag with no incoming message is 1̄."""
+        ring = self.ring
+        factors = [self._base_factor(q, r) for r in rels] + list(incoming)
+        if not factors:
+            return Factor((), ring.ones((), self.device), ring)
+        if self.plans is not None:
+            return self.plans.run_dense(factors, preds, out_attrs, stats)
+        avail = {a for f in factors for a in f.attrs}
+        for p in preds:
+            # σ on the first factor holding the attr (placement guarantees one)
+            i = next(i for i, f in enumerate(factors) if p.attr in f.attrs)
+            factors[i] = factors[i].select(p.attr, torch.as_tensor(p.mask, device=self.device))
+        return contract(factors, tuple(a for a in out_attrs if a in avail), ring)
 
     def _sparse_bag(self, q, rel: Relation, incoming, preds, out_attrs, stats=None) -> Factor:
         """Factorized sparse path: gather ⊗ rowwise, segment-⊕ to out_attrs."""
@@ -833,11 +870,13 @@ class CJTEngine:
         finally:
             self.store.tag = old
 
-    def _message_item(self, q: Query, u: str, v: str, placement, stats, tag) -> AbsorbItem:
-        """Build the deferred level item for message Y(u→v)."""
+    def _message_item(self, q: Query, u: str, v: str, placement, stats, tag
+                      ) -> AbsorbItem | None:
+        """Build the deferred level item for message Y(u→v), or None when
+        the bag takes the dense path (then the caller computes directly)."""
         rels = self._bag_rels(q, u)
-        if len(rels) != 1 or rels[0].num_rows == 0:
-            raise NotImplementedError(f"{u}: {DENSE_PATH_TODO}")
+        if len(rels) != 1 or rels[0].num_rows <= self.dense_rows_threshold:
+            return None
         rel = rels[0]
         gamma = self.gamma_carry(q, u, v)
         out_attrs = tuple(dict.fromkeys(self.jt.separator(u, v) + gamma))
@@ -903,6 +942,16 @@ class CJTEngine:
                 continue
             p = plans[i]
             item = self._message_item(p.query, u, v, p.placement, st, tag)
+            if item is None:
+                # the dense path goes through message(), which re-probes the
+                # sig the level probe above already counted — compensate so
+                # miss accounting matches the per-edge loop
+                self.store.misses -= 1
+                before = st.messages_computed
+                with self._tagged(tag):
+                    self.message(p.query, u, v, p.placement, st)
+                self._count_dispatches(st, st.messages_computed - before)
+                continue
             pending_sigs.add(self.store.full_sig(base, gamma))
             deferred.append((i, u, v, base, gamma, item))
         if not deferred:

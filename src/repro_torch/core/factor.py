@@ -6,8 +6,9 @@ the ring).  Join ≙ pointwise ⊗ after broadcast alignment; group-by ≙
 ⊕-reduction over marginalized axes — equations (1)/(2) of the paper.
 
 ``contract`` implements early marginalization / variable elimination (§2):
-one ``torch.einsum`` for scalar arithmetic rings, greedy elimination with
-pointwise ⊗ / ⊕-reduce otherwise.
+one ``torch.einsum`` for scalar float arithmetic rings, greedy elimination
+with pointwise ⊗ / ⊕-reduce otherwise (int64 COUNT included: CUDA has no
+int64 matrix product for einsum to call).
 """
 
 from __future__ import annotations
@@ -159,7 +160,7 @@ def contract(
     assert factors, "empty contraction"
     ring = ring or factors[0].ring
     keep = tuple(dict.fromkeys(keep))
-    if ring.is_arithmetic and len(ring.trailing) == 1:
+    if ring.is_arithmetic and len(ring.trailing) == 1 and ring.dtype.is_floating_point:
         return _einsum_contract(factors, keep, ring)
     return _generic_contract(factors, keep, ring)
 

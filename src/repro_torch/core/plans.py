@@ -20,6 +20,13 @@ plan.  PyTorch runs eagerly, so nothing is traced or compiled here.
   On a CUDA device those launch the hand-written kernels, always — there is
   no cost gate; on the CPU the same wrappers run their plain versions.
   BOOL, int64 COUNT and covariance reduce with plain torch on both devices.
+- **Dense bags.**  A bag whose relations are densified (no relation, or
+  ``dense_rows_threshold``) contracts dense factors.  A two-factor
+  contraction whose shared attrs do not survive to the output is a matrix
+  product: SUM and COUNT go to ``sc_ops.contract_op`` (semiring_contract),
+  TROPICAL_MIN/MAX to ``tc_ops.contract_op`` (tropical_contract).  On a
+  CUDA device those launch the hand-written kernels, with no cost gate;
+  every other dense contraction runs ``factor.contract`` in plain torch.
 """
 
 from __future__ import annotations
@@ -31,10 +38,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.segment_aggregate import ops as seg_ops
+from repro_torch.kernels.semiring_contract import ops as sc_ops
+from repro_torch.kernels.tropical_contract import ops as tc_ops
 from repro_torch.relational.relation import LRU, Predicate
 
 from . import semiring as sr
-from .factor import Factor
+from .factor import Factor, contract
 
 
 def resolve_device(device: torch.device | str | None = None) -> torch.device:
@@ -363,6 +372,66 @@ def _build_level_plan(ring: sr.Semiring, group_statics: tuple) -> _Plan:
 
 
 # ---------------------------------------------------------------------------
+# dense-bag plan: σ selects → contract (matmul-split kernels / plain torch)
+# ---------------------------------------------------------------------------
+
+def _matmul_split(structs, out: tuple[str, ...]):
+    """Decompose a 2-factor contraction as (free1, contracted) × (contracted,
+    free2) if no shared attr survives to the output (no batch dims)."""
+    (a1, d1), (a2, d2) = structs
+    doms = {**dict(zip(a1, d1)), **dict(zip(a2, d2))}
+    shared = tuple(a for a in a1 if a in set(a2))
+    out_set = set(out)
+    if not shared or (out_set & set(shared)):
+        return None
+    free1 = tuple(a for a in a1 if a in out_set)
+    free2 = tuple(a for a in a2 if a in out_set)
+    return shared, free1, free2, doms
+
+
+def _build_dense_plan(
+    ring: sr.Semiring,
+    structs: tuple[tuple[tuple[str, ...], tuple[int, ...]], ...],
+    pred_spec: tuple[tuple[str, int], ...],
+    out_attrs: tuple[str, ...],
+) -> _Plan:
+    avail = {a for attrs, _ in structs for a in attrs}
+    out = tuple(a for a in out_attrs if a in avail)
+    # tropical MIN/MAX shares the matmul decomposition: its ⊗ is +, so the
+    # (free1, shared) × (shared, free2) split maps 1:1 onto tropical_contract
+    tropical = ring.kernel_segment_op in ("min", "max")
+    split = None
+    if (
+        (ring.is_arithmetic or tropical)
+        and len(ring.trailing) == 1
+        and ring.dtype == torch.float32
+        and len(structs) == 2
+    ):
+        split = _matmul_split(structs, out)
+
+    def fn(fields, pred_masks):
+        factors = [Factor(attrs, f, ring) for (attrs, _), f in zip(structs, fields)]
+        for (attr, fidx), mask in zip(pred_spec, pred_masks):
+            factors[fidx] = factors[fidx].select(attr, mask)
+        if split is None:
+            return contract(factors, out, ring)
+        shared, free1, free2, doms = split
+        f1sz = int(np.prod([doms[a] for a in free1])) if free1 else 1
+        f2sz = int(np.prod([doms[a] for a in free2])) if free2 else 1
+        csz = int(np.prod([doms[a] for a in shared]))
+        m = factors[0].project_to(free1 + shared).field.reshape(f1sz, csz).contiguous()
+        r = factors[1].project_to(shared + free2).field.reshape(csz, f2sz).contiguous()
+        if tropical:
+            o = tc_ops.contract_op(m, r, is_min=ring.kernel_segment_op == "min")
+        else:
+            o = sc_ops.contract_op(m, r, None)
+        field = o.reshape(tuple(doms[a] for a in free1) + tuple(doms[a] for a in free2))
+        return Factor(free1 + free2, field, ring).project_to(out)
+
+    return _Plan(fn=fn, uses_kernel=split is not None)
+
+
+# ---------------------------------------------------------------------------
 # the cache
 # ---------------------------------------------------------------------------
 
@@ -601,6 +670,34 @@ class PlanCache:
             pred_codes,
             seg_idx,
         )
+
+    def run_dense(
+        self,
+        factors: Sequence[Factor],
+        preds: Sequence[Predicate],
+        out_attrs: tuple[str, ...],
+        stats=None,
+    ) -> Factor:
+        """Contract a dense bag's factors under its σ to ``out_attrs``."""
+        structs = tuple((f.attrs, f.domain_shape) for f in factors)
+        avail = {a for f in factors for a in f.attrs}
+        pred_spec = []
+        for p in preds:
+            if p.attr not in avail:  # pragma: no cover — placement guarantees
+                raise KeyError(f"σ({p.attr}) not available in bag")
+            pred_spec.append(
+                (p.attr, next(i for i, f in enumerate(factors) if p.attr in f.attrs))
+            )
+        pred_spec = tuple(pred_spec)
+        key = ("dense", self.ring.name, structs, pred_spec, tuple(out_attrs))
+        entry = self._plans.get(key)
+        built = entry is None
+        if built:
+            entry = _build_dense_plan(self.ring, structs, pred_spec, tuple(out_attrs))
+            self._plans.put(key, entry)
+        out = entry.fn(tuple(f.field for f in factors), tuple(self.mask_dev(p) for p in preds))
+        self._account(entry.uses_kernel, built, stats)
+        return out
 
     def __len__(self):
         return len(self._plans)

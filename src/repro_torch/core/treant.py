@@ -44,6 +44,7 @@ class Treant:
         ring: sr.Semiring = sr.SUM,
         jt: JTree | None = None,
         max_cache_bytes: int | None = None,
+        dense_rows_threshold: int = 0,
         use_plans: bool = True,
         batch_calibration: bool = True,
         policy: ThinkTimePolicy | None = None,
@@ -53,6 +54,8 @@ class Treant:
         self.catalog = catalog
         self.jt = jt or jt_from_catalog(catalog)
         self.store = MessageStore(max_bytes=max_cache_bytes)
+        # relations of at most this many rows are densified (dense plans)
+        self._dense_rows_threshold = dense_rows_threshold
         self._use_plans = use_plans
         self.batch_calibration = batch_calibration
         self.engine = self._new_engine(ring)
@@ -67,7 +70,8 @@ class Treant:
 
     def _new_engine(self, ring: sr.Semiring) -> CJTEngine:
         return CJTEngine(
-            self.jt, self.catalog, ring, store=self.store, use_plans=self._use_plans,
+            self.jt, self.catalog, ring, store=self.store,
+            dense_rows_threshold=self._dense_rows_threshold, use_plans=self._use_plans,
             batch_calibration=self.batch_calibration, device=self.device,
         )
 

@@ -1,0 +1,49 @@
+"""Load and launch the Hopper semiring_contract kernel.
+
+The hand-written CUDA C++ kernel ``csrc/semiring_contract.cu`` replaces the
+Pallas TPU kernel ``src/repro/kernels/semiring_contract/kernel.py:36``
+``semiring_contract`` (bodies ``_kernel`` and ``_masked_none_kernel``).  It
+is built by :mod:`repro_torch.kernels.build` on first use; nothing here runs
+at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+SYMBOL = "semiring_contract"
+
+
+def _load() -> ctypes.CDLL:
+    lib = build.load(SYMBOL)
+    fn = getattr(lib, SYMBOL)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(m: torch.Tensor, r: torch.Tensor, mask: torch.Tensor | None,
+           out: torch.Tensor) -> None:
+    """Launch on the current stream of ``m``'s device.
+
+    ``m`` (G, B) and ``r`` (B, A), both float32 or both float16, ``mask``
+    (B,) float32 or None, ``out`` (G, A) float32 zeros: contiguous CUDA
+    tensors, checked by the caller.  Raises if the launch is refused.
+    """
+    lib = _load()
+    g, b = m.shape
+    a = r.shape[1]
+    with torch.cuda.device(m.device):
+        stream = torch.cuda.current_stream(m.device).cuda_stream
+        rc = getattr(lib, SYMBOL)(
+            m.data_ptr(), r.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), g, b, a, int(m.dtype == torch.float16), stream,
+        )
+    build.check(lib, SYMBOL, rc)

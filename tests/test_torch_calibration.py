@@ -14,6 +14,7 @@ import torch
 from _torch_parity import assert_factors_match, jax_catalog_from_port, port_catalog
 from repro.core import CJTEngine as JEngine
 from repro.core import Query as JQuery
+from repro.core import insert_empty_bag as j_insert_empty_bag
 from repro.core import jt_from_catalog as j_jt
 from repro.core import semiring as jsr
 from repro.relational import schema as jschema
@@ -167,18 +168,76 @@ def test_steps_resume_and_iterator_stops_anywhere(cats):
     assert st.messages_computed >= 1
 
 
-def test_empty_bags_take_the_unported_dense_path(cats):
-    """An empty bag, and a bag emptied by R̄ (``removed``), need the dense
-    plans, which wait for a later slice."""
-    _, tcat = cats
-    jt = insert_empty_bag(jt_from_catalog(tcat), "OppUser", ("user_id",), "bag:Opp",
-                          ["bag:User"])
-    e = CJTEngine(jt, tcat, tsr.COUNT, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        e.execute(Query.make(tcat, ring="count", group_by=("title",)))
-    e = CJTEngine(jt_from_catalog(tcat), tcat, tsr.COUNT, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        e.execute(Query.make(tcat, ring="count", group_by=("stage",), removed=("Acc",)))
+def _empty_bag_parity(jcat, tcat, make_jt, jq, tq):
+    """Both engines on their own copy of one JT shape: equal signatures,
+    counts and bit-identical answers; returns the port's answer."""
+    je = JEngine(make_jt(j_jt(jcat), j_insert_empty_bag), jcat, jsr.get(tq.ring_name))
+    te = CJTEngine(make_jt(jt_from_catalog(tcat), insert_empty_bag), tcat,
+                   tsr.get(tq.ring_name), device="cpu")
+    assert te.jt.bags == je.jt.bags and te.jt.adj == je.jt.adj
+    js, ts = je.calibrate(jq), te.calibrate(tq)
+    assert (js.messages_computed, js.messages_reused, js.calibration_dispatches) == (
+        ts.messages_computed, ts.messages_reused, ts.calibration_dispatches)
+    jp, tp = je.place_predicates(jq), te.place_predicates(tq)
+    for u, v in je.jt.directed_edges():
+        assert je.edge_sig(jq, u, v, jp) == te.edge_sig(tq, u, v, tp)
+    (jf, jst), (tf, tst) = je.execute(jq), te.execute(tq)
+    assert (jst.messages_computed, jst.messages_reused) == (tst.messages_computed,
+                                                            tst.messages_reused)
+    assert je.store.misses == te.store.misses
+    assert_factors_match(jf, tf, exact=True)
+    return tf
+
+
+@pytest.mark.parametrize("ring,measure", [("count", None), ("sum", ("Opp", "amount")),
+                                          ("tropical_max", ("Opp", "amount"))])
+def test_opp_user_empty_bag_matches_reference(cats, ring, measure):
+    """An empty bag holds no relation: it contracts its incoming messages on
+    the dense path."""
+    jcat, tcat = cats
+
+    def make_jt(jt, insert):
+        return insert(jt, "OppUser", ("user_id",), "bag:Opp", ["bag:User"])
+
+    args = dict(ring=ring, measure=measure, group_by=("title",))
+    tf = _empty_bag_parity(jcat, tcat, make_jt, JQuery.make(jcat, **args),
+                           Query.make(tcat, **args))
+    plain = CJTEngine(jt_from_catalog(tcat), tcat, tsr.get(ring), device="cpu")
+    assert torch.equal(tf.field, plain.execute(Query.make(tcat, **args))[0].field)
+
+
+def test_removed_relation_empties_its_bag(cats):
+    """R̄: a bag whose only relation is removed takes the dense path as 1̄."""
+    jcat, tcat = cats
+    jq = JQuery.make(jcat, ring="sum", measure=("Opp", "amount"), group_by=("stage",),
+                     removed=("Acc",))
+    tq = Query.make(tcat, ring="sum", measure=("Opp", "amount"), group_by=("stage",),
+                    removed=("Acc",))
+    tf = _empty_bag_parity(jcat, tcat, lambda jt, _: jt, jq, tq)
+    opp = tcat.get("Opp")
+    want = np.bincount(opp.codes["stage"], opp.measures["amount"].astype(np.float64), 6)
+    np.testing.assert_array_equal(tf.field.numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("ring,measure", [("count", None),
+                                          ("tropical_max", ("Store_Sales", "sales_price"))])
+def test_tpcds_time_stores_empty_bag_matches_reference(ring, measure):
+    """Fig 21's empty bag (store_key, time_key) between Store_Sales and its
+    Stores/Time dimensions: its shortcut view answers the (store_key,
+    time_key) query as the tree without it does."""
+    tcat = port_catalog(jschema.tpcds_star(n_sales=3000, n_stores=6, n_times=24, n_items=50),
+                        round_measures=True)
+    jcat = jax_catalog_from_port(tcat)
+
+    def make_jt(jt, insert):
+        return insert(jt, "TimeStores", ("store_key", "time_key"), "bag:Store_Sales",
+                      ["bag:Stores", "bag:Time"])
+
+    args = dict(ring=ring, measure=measure, group_by=("store_key", "time_key"))
+    tf = _empty_bag_parity(jcat, tcat, make_jt, JQuery.make(jcat, **args),
+                           Query.make(tcat, **args))
+    plain = CJTEngine(jt_from_catalog(tcat), tcat, tsr.get(ring), device="cpu")
+    assert torch.equal(tf.field, plain.execute(Query.make(tcat, **args))[0].field)
 
 
 def test_default_device_needs_a_card(cats, monkeypatch):

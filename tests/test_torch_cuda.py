@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the hand-written segment-aggregate kernels held
-against their plain PyTorch versions on the same card, and the quickstart
-slice on ``cuda`` held against the same slice on the CPU.
+"""The port on a CUDA card: the hand-written kernels (segment-aggregate,
+semiring_contract, tropical_contract) held against their plain PyTorch
+versions on the same card, and the quickstart slice — sparse, and with every
+dimension table dense — on ``cuda`` held against the same slice on the CPU.
 
 Every test here is marked ``gpu`` and skips without a card (decided inside
 the ``cuda`` fixture).  The file imports neither JAX nor the JAX package, so
@@ -9,7 +10,8 @@ it runs on a machine with a card and no JAX:
 
 Tolerances: min/max and sums of integer-valued floats must match exactly;
 gamma-valued sums agree to rtol 1e-5 (the kernels add in float32 with
-atomics, in an order that changes from run to run)."""
+atomics, in an order that changes from run to run); float16 and uniform
+float32 contractions to the reference file's rtol 5e-3 / atol 1e-3."""
 
 import numpy as np
 import pytest
@@ -19,6 +21,10 @@ from repro_torch.core import Query, Treant
 from repro_torch.core import semiring as sr
 from repro_torch.kernels.segment_aggregate import ops
 from repro_torch.kernels.segment_aggregate.ref import segment_aggregate_ref
+from repro_torch.kernels.semiring_contract import ops as sc_ops
+from repro_torch.kernels.semiring_contract.ref import semiring_contract_ref
+from repro_torch.kernels.tropical_contract import ops as tc_ops
+from repro_torch.kernels.tropical_contract.ref import tropical_contract_ref
 from repro_torch.relational import schema
 from repro_torch.relational.relation import mask_in
 
@@ -32,6 +38,11 @@ LEVEL_SPECS = [
     [(30, 5, 1), (1000, 64, 4), (77, 13, 3)],
     [(7, 3, 1), (9, 300, 2)],
 ]
+
+
+# tests/test_kernels.py's shapes, then the dense path's skinny ones
+CONTRACT_SHAPES = [(8, 8, 8), (64, 64, 64), (100, 70, 130), (256, 128, 200), (1, 300, 5),
+                   (192, 100_000, 8), (1_200_000, 16, 1), (60, 512, 1)]
 
 
 @pytest.fixture
@@ -136,3 +147,91 @@ def test_cuda_quickstart_matches_cpu_and_launches_both_kernels(cuda):
             b.stats.messages_computed, b.stats.messages_reused)
         torch.testing.assert_close(b.factor.field.cpu(), a.factor.field, rtol=1e-5, atol=0)
     assert torch.equal(gmax[0].field.cpu(), cmax[0].field)
+
+
+def _contract_inputs(g, b, a, seed, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    m = torch.as_tensor(rng.integers(-20, 21, (g, b)).astype(np.float32), device=device)
+    r = torch.as_tensor(rng.integers(-20, 21, (b, a)).astype(np.float32), device=device)
+    return m.to(dtype), r.to(dtype)
+
+
+@pytest.mark.parametrize("g,b,a", CONTRACT_SHAPES)
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "mask"])
+def test_cuda_semiring_contract_integer_data_is_exact(cuda, g, b, a, masked):
+    m, r = _contract_inputs(g, b, a, g + b, cuda)
+    mask = (torch.rand(b, device=cuda) > 0.4).float() if masked else None
+    before = sc_ops.LAUNCHES["semiring_contract"]
+    got = sc_ops.contract_op(m, r, mask)
+    torch.cuda.synchronize()
+    assert sc_ops.LAUNCHES["semiring_contract"] == before + 1
+    assert torch.equal(got, semiring_contract_ref(m, r, mask))
+
+
+@pytest.mark.parametrize("g,b,a", CONTRACT_SHAPES[:5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_cuda_semiring_contract_uniform_data(cuda, g, b, a, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(g * 1000 + b)
+    m = torch.rand((g, b), generator=gen, device=cuda).to(dtype)
+    r = torch.rand((b, a), generator=gen, device=cuda).to(dtype)
+    got = sc_ops.contract_op(m, r)
+    torch.testing.assert_close(got, semiring_contract_ref(m, r), rtol=5e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("g,b,a", CONTRACT_SHAPES)
+@pytest.mark.parametrize("is_min", [True, False], ids=["min", "max"])
+def test_cuda_tropical_contract_is_exact(cuda, g, b, a, is_min):
+    m, r = _contract_inputs(g, b, a, g + a, cuda)
+    ident = float("inf") if is_min else float("-inf")
+    m[torch.rand(m.shape, device=cuda) < 0.3] = ident  # absent tuples
+    before = tc_ops.LAUNCHES["tropical_contract"]
+    got = tc_ops.contract_op(m, r, is_min=is_min)
+    torch.cuda.synchronize()
+    assert tc_ops.LAUNCHES["tropical_contract"] == before + 1
+    assert not torch.isnan(got).any()
+    assert torch.equal(got, tropical_contract_ref(m, r, is_min))
+
+
+def test_cuda_dense_quickstart_matches_cpu_and_launches_the_contract_kernels(cuda):
+    cat = schema.salesforce(n_opp=20_000, n_user=500, n_camp=100, n_acc=200)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sc_ops.reset_launches()
+        tc_ops.reset_launches()
+        t = Treant(cat, ring=sr.SUM, device=dev, dense_rows_threshold=500)
+        pie = Query.make(cat, ring="sum", measure=("Opp", "amount"), group_by=("camp_type",))
+        cal = t.register_dashboard("pie", pie)
+        q1 = pie.with_predicate(mask_in(cat.domains()["role_name"], [1], attr="role_name"))
+        res = t.interact("anna", "pie", q1.add_group_by("title"))
+        qm = Query.make(cat, ring="tropical_max", measure=("Opp", "amount"), group_by=("stage",))
+        f, _ = t.engine_for("tropical_max").execute(qm)
+        runs[dev] = (cal, res, f, sc_ops.LAUNCHES["semiring_contract"],
+                     tc_ops.LAUNCHES["tropical_contract"])
+    (ccal, cres, cf, csc, ctc), (gcal, gres, gf, gsc, gtc) = runs["cpu"], runs["cuda"]
+    assert (csc, ctc) == (0, 0) and gsc > 0 and gtc > 0
+    assert (ccal.messages_computed, ccal.calibration_dispatches) == (
+        gcal.messages_computed, gcal.calibration_dispatches)
+    torch.testing.assert_close(gres.factor.field.cpu(), cres.factor.field, rtol=1e-5, atol=0)
+    assert torch.equal(gf.field.cpu(), cf.field)
+
+
+def test_cuda_dense_int64_count_matches_cpu(cuda):
+    """int64 COUNT contracts dense bags by elimination: CUDA has no int64
+    matrix product for einsum to call."""
+    cat = schema.salesforce(n_opp=5_000, n_user=100, n_camp=40, n_acc=60)
+    q = Query.make(cat, ring="count_i64", group_by=("camp_type",))
+    outs = [Treant(cat, ring=sr.get("count_i64"), device=dev, dense_rows_threshold=100)
+            .engine.execute(q)[0].field.cpu() for dev in ("cpu", "cuda")]
+    assert outs[0].dtype == torch.int64 and torch.equal(outs[0], outs[1])
+
+
+def test_cuda_contract_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    m = torch.zeros(4, 3, device=cuda)
+    with pytest.raises(TypeError):
+        sc_ops.contract_op(m, torch.zeros(3, 2, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        sc_ops.contract_op(m, torch.zeros(2, 3, device=cuda).t())
+    with pytest.raises(ValueError):
+        tc_ops.contract_op(m, torch.zeros(4, 2, device=cuda))
+    with pytest.raises(TypeError):
+        tc_ops.contract_op(m.half(), torch.zeros(3, 2, device=cuda).half())

@@ -179,6 +179,9 @@ def test_relational_imports_before_core_and_without_jax():
         "from repro_torch.core import Treant, CJTEngine, Query, steiner\n"
         "from repro_torch.relational import sql, schema\n"
         "from repro_torch.kernels.segment_aggregate import ops, kernel, ref\n"
+        "from repro_torch.kernels.semiring_contract import ops, kernel, ref\n"
+        "from repro_torch.kernels.tropical_contract import ops, kernel, ref\n"
+        "from repro_torch.kernels import build\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print('BAD', bad)\n"
