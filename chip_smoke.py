@@ -18,8 +18,11 @@ CUDA toolkit.  Phases:
    ``index_add_`` / ``scatter_reduce_`` call on the same inputs.  Then
    ``semiring_contract`` (float32, float16, σ mask) and ``tropical_contract``
    (min, max, ±inf absent tuples) against their plain versions at
-   ``tests/test_kernels.py``'s shapes, on integer-valued data: exact; each
-   call timed beside its bound, its plain version and ``torch.matmul``;
+   ``tests/test_kernels.py``'s shapes and at the tall and wide regimes'
+   record shapes, M also as a transposed view, on integer-valued data:
+   exact; each call timed beside its bound, its plain version and
+   ``torch.matmul``.  Two calls on gamma-valued data must give the same
+   bits.  Then the host cost of one contract wrapper call, step by step;
 4. slice phase: the quickstart sequence at a deployment's size
    (``schema.salesforce`` with every table x50: 10M opportunities, Opp row
    bucket 2^24) on ``cuda``: two dashboard registrations, the role filter,
@@ -47,6 +50,12 @@ CUDA toolkit.  Phases:
    the plain version and ``torch.matmul`` (float32, TF32 off; kernel 4 has
    no single PyTorch call);
 9. time each kernel on the inputs of its largest main-path launch.
+
+Two times go with every kernel: ``ms``, wrapper calls back to back between
+CUDA events (what the main path pays, host cost included), and
+``device_ms``, the same calls captured in a CUDA graph and replayed between
+CUDA events (no host cost), rotating among enough input copies to exceed
+the 50 MB L2 cache.
 
 The line before the last is the ``nvidia-smi`` line, the one before it the
 ``{"kernels": [...]}`` record; the last line is
@@ -118,6 +127,51 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
+L2_BYTES = 50 * 2**20              # H100 L2 cache
+
+
+def device_ms(fn, args: tuple, reps: int = 20, rounds: int = 5) -> float:
+    """Device time of one ``fn(*args)`` call: ``reps`` calls captured in a
+    CUDA graph, replayed between CUDA events (replay has no host cost), the
+    median over ``rounds`` replays of the mean per call.  The calls rotate
+    among copies of the tensor arguments, enough to exceed the L2 cache
+    (at most 256), so the inputs come from device memory as on the main
+    path."""
+    import torch
+
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    copies = max(1, min(256, -(-2 * L2_BYTES // max(nbytes, 1))))
+    sets = [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+                     for _ in range(copies - 1)]
+    reps = max(reps, copies)
+    # warm up and capture on one stream: the contract kernels keep their
+    # scratch per stream, so it exists before the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in sets:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(reps):
+            fn(*sets[i % copies])
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(out)
+
+
 def bound_ms(n: int, v: int, g: int) -> float:
     """Least time on the card: read codes (4N) and values (4NV) once, write
     the output (4GV) once, at the device memory rate."""
@@ -185,17 +239,17 @@ def recording_contracts(K, captured: dict, shapes: list):
 
     def keep(name, m, r, op, mask=None):
         key = (name, *m.shape, r.shape[1], str(m.dtype), op)
-        shapes.append(key)
-        if key not in captured:
+        shapes.append((*key, tuple(m.stride()), tuple(r.stride())))
+        if key not in captured:  # clone() keeps a transposed view's strides
             captured[key] = (m.clone(), r.clone(), op, None if mask is None else mask.clone())
 
-    def sc_launch(m, r, mask, out):
+    def sc_launch(m, r, mask, out, scratch, geom):
         keep("semiring_contract", m, r, "sum", mask)
-        real_sc(m, r, mask, out)
+        real_sc(m, r, mask, out, scratch, geom)
 
-    def tc_launch(m, r, out, is_min):
+    def tc_launch(m, r, out, scratch, geom, is_min):
         keep("tropical_contract", m, r, "min" if is_min else "max")
-        real_tc(m, r, out, is_min)
+        real_tc(m, r, out, scratch, geom, is_min)
 
     K.sc_kernel.launch, K.tc_kernel.launch = sc_launch, tc_launch
     try:
@@ -289,29 +343,78 @@ def kernel_phase(torch, ops, ref, report: dict) -> None:
     report["kernel_phase"] = rows
 
 
+# the regimes' record shapes (csrc/contract.cuh): wide (16, 1e5) x (1e5, 8),
+# (16, 1e5) x (1e5, 1) and (1, 5e4) x (5e4, 8); tall (1e5, 16) x (16, 1) and
+# (1e5, 16) x (16, 8)
+REGIME_SHAPES = [(16, 100_000, 8), (16, 100_000, 1), (1, 50_000, 8), (100_000, 16, 1),
+                 (100_000, 16, 8)]
+
+
 def contract_kernel_phase(torch, K, report: dict) -> None:
     """Kernels 3 and 4 against their plain versions at ``tests/test_kernels.py``'s
-    shapes, each call timed.  Integer-valued data in [-20, 20] is exact in
-    float16 too, and every product and sum stays an integer below 2^24, so
-    the sum must match exactly; min/max are exact in any order."""
+    shapes and at the regimes' record shapes, M also as a transposed view
+    (strides (1, G), as the dense plan hands it over), each call timed.
+    Integer-valued data in [-20, 20] is exact in float16 too, and every
+    product and sum stays an integer below 2^24, so the sum must match
+    exactly; min/max are exact in any order.  Then the repeat check: two
+    calls on gamma-valued float32 data give the same bits."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     shapes = [(8, 8, 8), (64, 64, 64), (100, 70, 130), (256, 128, 200), (1, 300, 5)]
     rows = []
-    for g, b, a in shapes:
+    for g, b, a in shapes + REGIME_SHAPES:
         m = torch.randint(-20, 21, (g, b), generator=gen, device=dev).float()
         r = torch.randint(-20, 21, (b, a), generator=gen, device=dev).float()
         mask = (torch.rand(b, generator=gen, device=dev) > 0.5).float()
-        for dtype in (torch.float32, torch.float16):
-            for mk in (None, mask):
-                rows.append(contract_row(torch, K, "semiring_contract", m.to(dtype),
-                                         r.to(dtype), "sum", mk))
-        for op in ("min", "max"):
-            ident = float("inf") if op == "min" else float("-inf")
-            mi = m.masked_fill(torch.rand(m.shape, generator=gen, device=dev) < 0.3, ident)
-            rows.append(contract_row(torch, K, "tropical_contract", mi, r, op))
+        for view in (False,) if (g, b, a) in shapes else (False, True):
+            def lay(x):  # M as it lies, or as a transposed view of the same values
+                return x.t().contiguous().t() if view else x
+
+            for dtype in (torch.float32, torch.float16):
+                for mk in (None, mask):
+                    rows.append(contract_row(torch, K, "semiring_contract", lay(m.to(dtype)),
+                                             r.to(dtype), "sum", mk))
+            for op in ("min", "max"):
+                ident = float("inf") if op == "min" else float("-inf")
+                mi = m.masked_fill(torch.rand(m.shape, generator=gen, device=dev) < 0.3, ident)
+                rows.append(contract_row(torch, K, "tropical_contract", lay(mi), r, op))
     print_contract_rows(rows)
     report["contract_kernel_phase"] = rows
+    gamma = torch.distributions.Gamma(torch.tensor(2.0, device=dev),
+                                      torch.tensor(1 / 5000.0, device=dev))
+    for g, b, a in REGIME_SHAPES:
+        m, r = gamma.sample((g, b)), gamma.sample((b, a)) / 1e4
+        for mm in (m, m.t().contiguous().t()):
+            first, second = K.sc_ops.contract_op(mm, r), K.sc_ops.contract_op(mm, r)
+            torch.cuda.synchronize()
+            check(torch.equal(first, second),
+                  f"semiring_contract ({g}, {b}) x ({b}, {a}) differs between two calls")
+            torch.testing.assert_close(first, K.sc_ref.semiring_contract_ref(mm, r),
+                                       rtol=1e-5, atol=0)
+    print("  semiring_contract: two calls on gamma-valued data give the same bits", flush=True)
+    # split launches on two streams at once: each stream has its own
+    # workspace and tickets, so neither reads the other's partials
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    for g, b, a in ((16, 100_000, 8), (192, 100_000, 8)):
+        pairs = [(torch.randint(-20, 21, (g, b), generator=gen, device=dev).float(),
+                  torch.randint(-20, 21, (b, a), generator=gen, device=dev).float())
+                 for _ in streams]
+        regime = K.launch.contract_args(*pairs[0], (torch.float32,)).regime
+        for name, (run, plain) in (
+                ("semiring_contract", (K.sc_ops.contract_op, K.sc_ref.semiring_contract_ref)),
+                ("tropical_contract", (K.tc_ops.contract_op, K.tc_ref.tropical_contract_ref))):
+            torch.cuda.synchronize()
+            outs = [[] for _ in streams]
+            for _ in range(8):
+                for st, pair, got in zip(streams, pairs, outs):
+                    with torch.cuda.stream(st):
+                        got.append(run(*pair))
+            torch.cuda.synchronize()
+            for pair, got in zip(pairs, outs):
+                want = plain(*pair)
+                check(all(torch.equal(x, want) for x in got),
+                      f"{name} ({g}, {b}) x ({b}, {a}) {regime}: wrong on two streams at once")
+    print("  both contract kernels: split launches on two streams at once are exact", flush=True)
 
 
 def contract_run(K, name, m, r, op, mask=None):
@@ -339,25 +442,115 @@ def contract_row(torch, K, name, m, r, op, mask=None, exact=True) -> dict:
         check(torch.equal(got, want), f"{what} disagrees with its plain version")
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
-    library = None
+    library = library_device = None
     if name == "semiring_contract" and mask is None and m.dtype == torch.float32:
         library = time_ms(lambda: torch.matmul(m, r))
+        library_device = device_ms(torch.matmul, (m, r))
     bound, by = contract_bound(g, b, a, m.element_size(), mask is not None,
                                name == "tropical_contract")
+    if name == "semiring_contract":
+        dev_ms = device_ms(K.sc_ops.contract_op, (m, r, mask))
+    else:
+        dev_ms = device_ms(lambda mm, rr: K.tc_ops.contract_op(mm, rr, is_min=op == "min"), (m, r))
     return dict(kernel=name, g=g, b=b, a=a, op=op, dtype=str(m.dtype).replace("torch.", ""),
-                masked=mask is not None, ms=time_ms(run), plain_ms=time_ms(plain, 3, 3),
-                library_ms=library, bound_ms=bound, bound_by=by,
-                max_abs_err=max_abs_err(got, want))
+                masked=mask is not None, m_strides=list(m.stride()),
+                regime=K.launch.contract_args(m, r, (m.dtype,)).regime,
+                ms=time_ms(run), device_ms=dev_ms, plain_ms=time_ms(plain, 3, 3),
+                library_ms=library, library_device_ms=library_device, bound_ms=bound,
+                bound_by=by, max_abs_err=max_abs_err(got, want))
 
 
 def print_contract_rows(rows: list[dict]) -> None:
     for r in rows:
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        lib = ("null" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f})")
         mask = "mask" if r["masked"] else "    "
-        print(f"  {r['kernel']:18s} {r['op']:3s} {r['dtype']:7s} {mask} "
-              f"({r['g']}, {r['b']}) x ({r['b']}, {r['a']})  kernel {r['ms']:.4f} ms  "
+        print(f"  {r['kernel']:18s} {r['op']:3s} {r['dtype']:7s} {mask} {r['regime']:5s} "
+              f"({r['g']}, {r['b']}) x ({r['b']}, {r['a']}) M strides {tuple(r['m_strides'])}  "
+              f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  "
               f"library {lib}", flush=True)
+        for lay in r.get("path_m_layouts", ()):
+            print(f"    the main paths handed M over with strides {tuple(lay['strides'])} "
+                  f"(read along {lay['read_along']}) in {lay['launches']} launches", flush=True)
+
+
+def host_us(fn, n: int = 200, rounds: int = 7) -> float:
+    """Host time of one ``fn()`` call in microseconds: the median over
+    ``rounds`` of the mean of ``n`` calls on the host clock, with the device
+    drained between rounds (outside the clock)."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def host_cost_phase(torch, K, report: dict) -> None:
+    """Split the host cost of a contract wrapper call into its steps, at the
+    record input (16, 100 000) x (100 000, 8) with M a transposed view.  The
+    steps an earlier wrapper took (``torch.zeros``/``torch.full`` output,
+    ``build.load`` + ``getattr``, a device context, a ``Stream`` object) are
+    timed beside the ones that replaced them, and the whole calls beside
+    ``torch.matmul``."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    m = torch.randint(-20, 21, (100_000, 16), generator=gen, device=dev).float().t()
+    r = torch.randint(-20, 21, (100_000, 8), generator=gen, device=dev).float()
+    mc = m.contiguous()
+    dtypes = (torch.float32,)
+    geom = K.launch.contract_args(m, r, dtypes)
+    out = torch.empty((16, 8), device=dev)
+    kern = K.sc_kernel.KERNEL
+    K.sc_ops.contract_op(m, r)
+    scratch = kern.scratch(dev, geom)
+    fn, raw, sym = kern._fn, kern._stream, kern.symbol
+    ptrs = (m.data_ptr(), r.data_ptr(), None, out.data_ptr(), *scratch, geom.address)
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = [
+        ("checks and cached geometry (launch.contract_args)",
+         lambda: K.launch.contract_args(m, r, dtypes)),
+        ("torch.zeros output (earlier wrapper: allocation + fill launch)",
+         lambda: torch.zeros((16, 8), device=dev)),
+        ("torch.full output (earlier tropical wrapper: allocation + fill launch)",
+         lambda: torch.full((16, 8), float("inf"), device=dev)),
+        ("torch.empty output", lambda: torch.empty((16, 8), device=dev)),
+        ("m.new_empty output", lambda: m.new_empty((16, 8))),
+        ("torch.empty workspace (a fresh one per call)", lambda: torch.empty(geom.ws, device=dev)),
+        ("Kernel.scratch (workspace and tickets kept per stream)",
+         lambda: kern.scratch(dev, geom)),
+        ("build.load + getattr (earlier wrapper, every call)",
+         lambda: getattr(K.build.load(sym), sym)),
+        ("with torch.cuda.device(...) (earlier wrapper, every call)", device_context),
+        ("torch.cuda.current_stream(dev).cuda_stream (earlier wrapper)",
+         lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("raw current stream", lambda: raw(dev.index)),
+        ("torch.cuda.current_device()", torch.cuda.current_device),
+        ("data_ptr() of m, r, out", lambda: (m.data_ptr(), r.data_ptr(), out.data_ptr())),
+        ("ctypes call: launch + cudaGetLastError", lambda: fn(*ptrs, raw(dev.index))),
+        ("kernel.launch (bound kernel, device check, stream, ctypes)",
+         lambda: K.sc_kernel.launch(m, r, None, out, scratch, geom)),
+        ("contract_op, M a transposed view (the whole wrapper)",
+         lambda: K.sc_ops.contract_op(m, r)),
+        ("contract_op, M contiguous", lambda: K.sc_ops.contract_op(mc, r)),
+        ("torch.matmul(m, r), M contiguous", lambda: torch.matmul(mc, r)),
+        ("torch.matmul(m, r), M a transposed view", lambda: torch.matmul(m, r)),
+    ]
+    rows = [{"step": name, "host_us": host_us(f)} for name, f in steps]
+    for row in rows:
+        print(f"  host {row['host_us']:8.2f} us  {row['step']}", flush=True)
+    report["host_cost"] = rows
 
 
 # ---------------------------------------------------------------------------
@@ -590,7 +783,9 @@ def dense_phase(torch, np, K, rt, sliced: dict, report: dict) -> dict:
     t = gpu["treant"]
     project = project_times(np, t)
     for shape, ms in project.items():
-        print(f"dense: User factor project_to + contiguous to {shape}: {ms:.4f} ms", flush=True)
+        print(f"dense: User factor project_to to {shape}: {ms['view']:.4f} ms as the plan "
+              f"hands it over (a strided view: {ms['is_view']}), {ms['contiguous']:.4f} ms with "
+              f".contiguous()", flush=True)
     report["dense"] = dict(
         dense_rows_threshold=DENSE_ROWS, dims=dims, launches=launches, counts=gpu["counts"],
         offline_ms=gpu["offline_s"] * 1e3, think_ms=gpu["think_s"] * 1e3,
@@ -606,7 +801,9 @@ def dense_phase(torch, np, K, rt, sliced: dict, report: dict) -> dict:
 
 def project_times(np, t) -> dict:
     """Time the plain-torch ``project_to`` that reshapes the dense User
-    factor into the contract kernel's M before each launch."""
+    factor into the contract kernel's M before each launch: as the plan
+    does it now (a view where reshape allows) and with the ``.contiguous()``
+    copy the plan made before the kernels took strided M."""
     user = t.catalog.get("User")
     f = t.engine.plans._factors.get(("base", user.key, "sum", None))
     check(f is not None, "the dense User factor is not in the plan cache")
@@ -615,8 +812,10 @@ def project_times(np, t) -> dict:
     for keep in (("role_id", "user_id"), ("role_id", "title", "user_id"),
                  ("user_id", "role_id"), ("user_id", "title", "role_id")):
         rows = int(np.prod([d[a] for a in keep[:-1]]))
-        out["x".join(keep)] = time_ms(
-            lambda: f.project_to(keep).field.reshape(rows, d[keep[-1]]).contiguous(), 5, 3)
+        view = lambda: f.project_to(keep).field.reshape(rows, d[keep[-1]])  # noqa: E731
+        out["x".join(keep)] = {"view": time_ms(view, 5, 3),
+                               "contiguous": time_ms(lambda: view().contiguous(), 5, 3),
+                               "is_view": not view().is_contiguous()}
     return out
 
 
@@ -709,10 +908,27 @@ def rbar_phase(torch, np, Query, t, report: dict) -> None:
 # phase 8: the contract kernels at every shape the dense paths launched
 # ---------------------------------------------------------------------------
 
+def path_m_layouts(K, launches: list, key: tuple) -> list[dict]:
+    """How the main paths handed M over at one (kernel, shape, dtype, op):
+    each distinct stride pair, the axis it is read along (B: contiguous
+    along B, as a row-major M; G: contiguous along G, as a transposed view)
+    and how many launches took it."""
+    seen: dict = {}
+    for *k, m_strides, _ in launches:
+        if tuple(k) == key:
+            seen[m_strides] = seen.get(m_strides, 0) + 1
+    along_b = {st: K.launch.unit_strides(key[1:3], st)[1] == 1 for st in seen}
+    return [{"strides": list(st), "read_along": "B" if along_b[st] else "G", "launches": n}
+            for st, n in sorted(seen.items())]
+
+
 def contract_shapes_phase(torch, K, captured: dict, report: dict) -> list[dict]:
-    rows = [contract_row(torch, K, name, m, r, op, mask, exact=name == "tropical_contract")
-            for (name, *_), (m, r, op, mask) in sorted(captured.items(),
-                                                       key=lambda kv: str(kv[0]))]
+    launches = report["dense"]["launch_shapes"] + report["fig21"]["launch_shapes"]
+    rows = []
+    for key, (m, r, op, mask) in sorted(captured.items(), key=lambda kv: str(kv[0])):
+        row = contract_row(torch, K, key[0], m, r, op, mask, exact=key[0] == "tropical_contract")
+        row["path_m_layouts"] = path_m_layouts(K, launches, key)
+        rows.append(row)
     print_contract_rows(rows)
     report["contract_shapes"] = rows
     return rows
@@ -746,6 +962,7 @@ def kernel_records(torch, K, sliced: dict, contract_rows: list[dict],
             "launches": sliced["launches"][name],
             "max_abs_err": max_abs_err(got, want),
             "ms": time_ms(lambda: run(codes, values, g, op)),
+            "device_ms": device_ms(run, (codes, values, g, op)),
             "plain_ms": time_ms(lambda: plain(codes, values, g, op), 3, 3),
             "bound_ms": bound_ms(n, v, g), "bound_by": "bytes",
             "library_ms": time_ms(library_call(codes, values, g, op)),
@@ -761,9 +978,12 @@ def kernel_records(torch, K, sliced: dict, contract_rows: list[dict],
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": dense["launches"][name], "max_abs_err": top["max_abs_err"],
-            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "ms": top["ms"], "device_ms": top["device_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
-            "shape": {"g": top["g"], "b": top["b"], "a": top["a"], "op": top["op"]},
+            "shape": {"g": top["g"], "b": top["b"], "a": top["a"], "op": top["op"],
+                      "m_strides": top["m_strides"], "regime": top["regime"],
+                      "path_m_layouts": top["path_m_layouts"]},
         })
     return records
 
@@ -790,7 +1010,7 @@ def main() -> int:
 
     from repro_torch.core import CJTEngine, Query, Treant, insert_empty_bag, jt_from_catalog
     from repro_torch.core import semiring as sr
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, launch
     from repro_torch.kernels.segment_aggregate import kernel as seg_kernel
     from repro_torch.kernels.segment_aggregate import ops as seg_ops
     from repro_torch.kernels.segment_aggregate import ref as seg_ref
@@ -807,6 +1027,7 @@ def main() -> int:
     K = types.SimpleNamespace(
         seg_kernel=seg_kernel, seg_ops=seg_ops, seg_ref=seg_ref, sc_kernel=sc_kernel,
         sc_ops=sc_ops, sc_ref=sc_ref, tc_kernel=tc_kernel, tc_ops=tc_ops, tc_ref=tc_ref,
+        launch=launch, build=build,
     )
     report: dict = {}
     started = time.perf_counter()
@@ -821,6 +1042,8 @@ def main() -> int:
         print("kernel phase:", flush=True)
         kernel_phase(torch, seg_ops, seg_ref, report)
         contract_kernel_phase(torch, K, report)
+        print("host cost of a contract wrapper call:", flush=True)
+        host_cost_phase(torch, K, report)
         rt = (Treant, Query, sr, mask_in, parse)
         sliced = slice_phase(torch, np, K, rt, schema, report)
         dense = dense_phase(torch, np, K, rt, sliced, report)

@@ -37,6 +37,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels.launch import unit_strides
 from repro_torch.kernels.segment_aggregate import ops as seg_ops
 from repro_torch.kernels.semiring_contract import ops as sc_ops
 from repro_torch.kernels.tropical_contract import ops as tc_ops
@@ -389,6 +390,12 @@ def _matmul_split(structs, out: tuple[str, ...]):
     return shared, free1, free2, doms
 
 
+def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the contract kernels read it in place (one
+    unit-stride axis: a transposed factor is read as it lies), else a copy."""
+    return t if unit_strides(t.shape, t.stride()) is not None else t.contiguous()
+
+
 def _build_dense_plan(
     ring: sr.Semiring,
     structs: tuple[tuple[tuple[str, ...], tuple[int, ...]], ...],
@@ -419,8 +426,8 @@ def _build_dense_plan(
         f1sz = int(np.prod([doms[a] for a in free1])) if free1 else 1
         f2sz = int(np.prod([doms[a] for a in free2])) if free2 else 1
         csz = int(np.prod([doms[a] for a in shared]))
-        m = factors[0].project_to(free1 + shared).field.reshape(f1sz, csz).contiguous()
-        r = factors[1].project_to(shared + free2).field.reshape(csz, f2sz).contiguous()
+        m = _kernel_operand(factors[0].project_to(free1 + shared).field.reshape(f1sz, csz))
+        r = _kernel_operand(factors[1].project_to(shared + free2).field.reshape(csz, f2sz))
         if tropical:
             o = tc_ops.contract_op(m, r, is_min=ring.kernel_segment_op == "min")
         else:

@@ -2,15 +2,16 @@
 
 Each kernel is one CUDA C++ source under ``<package>/csrc/`` with a plain C
 interface (``extern "C"``), compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library and loaded with ``ctypes``.  Libraries go to
+shared library and loaded with ``ctypes``.  Headers shared by several
+packages live in ``kernels/csrc/`` (on the include path).  Libraries go to
 ``build/kernels/`` at the repo root; a library's name carries a hash of its
-source, its package's headers and the flags, so an edited source is rebuilt
-and a stale library is never loaded.  :func:`build` compiles every missing
-library at once, one ``nvcc`` process each.  Nothing here runs at import
-time: the CPU tests import this module on a machine with neither ``nvcc``
-nor a card.
+source, its package's headers, the shared headers and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+:func:`build` compiles every missing library at once, one ``nvcc`` process
+each.  Nothing here runs at import time: the CPU tests import this module on
+a machine with neither ``nvcc`` nor a card.
 
-Each kernel package keeps its own ``ctypes`` signature and launch function;
+Each kernel package binds its C symbol through :class:`launch.Kernel`;
 every C symbol ``<name>`` has a companion ``<name>_error(int)`` returning
 ``cudaGetErrorString`` of its return code.
 """
@@ -25,6 +26,7 @@ import subprocess
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
+SHARED_CSRC = KERNELS_DIR / "csrc"
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 # (package, source under <package>/csrc, C symbol)
 KERNELS = (
@@ -55,7 +57,8 @@ def nvcc_path() -> str:
 def library_path(package: str, source: str, symbol: str) -> Path:
     csrc = KERNELS_DIR / package / "csrc"
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for f in [csrc / source] + sorted(csrc.glob("*.cuh")):
+    headers = sorted(csrc.glob("*.cuh")) + sorted(SHARED_CSRC.glob("*.cuh"))
+    for f in [csrc / source] + headers:
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{symbol}-{h.hexdigest()[:12]}.so"
 
@@ -78,7 +81,8 @@ def build() -> dict[str, Path]:
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         log = open(f"{path}.log", "w")
         proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(KERNELS_DIR / package / "csrc" / source)],
+            [nvcc, *NVCC_FLAGS, "-I", str(SHARED_CSRC), "-o", str(tmp),
+             str(KERNELS_DIR / package / "csrc" / source)],
             stdout=log, stderr=subprocess.STDOUT,
         )
         running.append((symbol, path, tmp, proc, log))

@@ -10,7 +10,8 @@ kernels of ``src/repro/kernels/segment_aggregate/kernel.py``:
 =========================  =================================================
 
 Both are built by :mod:`repro_torch.kernels.build` (``nvcc`` for
-``sm_90a``, plain C interface, ``ctypes``) on first use.  Nothing here runs
+``sm_90a``, plain C interface, ``ctypes``) and bound by
+:class:`repro_torch.kernels.launch.Kernel` on first use.  Nothing here runs
 at import time: the CPU tests import this module on a machine with neither
 ``nvcc`` nor a card.
 """
@@ -21,20 +22,14 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels.launch import Kernel
 
 OP_CODES = {"sum": 0, "min": 1, "max": 2}
 
-
-def _load(name: str) -> ctypes.CDLL:
-    lib = build.load(name)
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+KERNELS = {name: Kernel(name, _ARGTYPES)
+           for name in ("segment_aggregate", "level_segment_aggregate")}
 
 
 def launch(name: str, codes: torch.Tensor, values: torch.Tensor, out: torch.Tensor,
@@ -45,13 +40,6 @@ def launch(name: str, codes: torch.Tensor, values: torch.Tensor, out: torch.Tens
     float32 are contiguous CUDA tensors; ``out`` holds the ⊕-identity.  The
     caller checks all of that.  Raises if the launch is refused.
     """
-    lib = _load(name)
     n, v = values.shape
-    g = out.shape[0]
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        rc = getattr(lib, name)(
-            codes.data_ptr(), values.data_ptr(), out.data_ptr(),
-            n, v, g, OP_CODES[op], stream,
-        )
-    build.check(lib, name, rc)
+    KERNELS[name](codes.device, codes.data_ptr(), values.data_ptr(), out.data_ptr(),
+                  n, v, out.shape[0], OP_CODES[op])

@@ -1,9 +1,10 @@
-"""Load and launch the Hopper tropical_contract kernel.
+"""Launch the Hopper tropical_contract kernel.
 
-The hand-written CUDA C++ kernel ``csrc/tropical_contract.cu`` replaces the
-Pallas TPU kernel ``src/repro/kernels/tropical_contract/kernel.py:37``
-``tropical_contract`` (body ``_kernel``).  It is built by
-:mod:`repro_torch.kernels.build` on first use; nothing here runs at import
+The hand-written CUDA C++ kernel ``csrc/tropical_contract.cu`` (body in
+``kernels/csrc/contract.cuh``) replaces the Pallas TPU kernel
+``src/repro/kernels/tropical_contract/kernel.py:37`` ``tropical_contract``
+(body ``_kernel``).  It is built by :mod:`repro_torch.kernels.build` and
+bound by :class:`launch.Kernel` on first use; nothing here runs at import
 time.
 """
 
@@ -13,35 +14,20 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import launch as _launch
 
-SYMBOL = "tropical_contract"
-
-
-def _load() -> ctypes.CDLL:
-    lib = build.load(SYMBOL)
-    fn = getattr(lib, SYMBOL)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+_P = ctypes.c_void_p
+KERNEL = _launch.Kernel("tropical_contract", [_P, _P, _P, _P, _P, _P, ctypes.c_int])
 
 
-def launch(m: torch.Tensor, r: torch.Tensor, out: torch.Tensor, is_min: bool) -> None:
+def launch(m: torch.Tensor, r: torch.Tensor, out: torch.Tensor, scratch: tuple,
+           geom: _launch.Geometry, is_min: bool) -> None:
     """Launch on the current stream of ``m``'s device.
 
-    ``m`` (G, B), ``r`` (B, A) float32 and ``out`` (G, A) float32 filled
-    with the ⊕-identity: contiguous CUDA tensors, checked by the caller.
-    Raises if the launch is refused.
+    ``m`` (G, B) and ``r`` (B, A) float32 views, ``out`` (G, A) float32
+    contiguous, ``scratch`` the pointers of the geometry's workspace and
+    tickets, or (None, None): checked by the caller.  Raises if the launch
+    is refused.
     """
-    lib = _load()
-    g, b = m.shape
-    a = r.shape[1]
-    with torch.cuda.device(m.device):
-        stream = torch.cuda.current_stream(m.device).cuda_stream
-        rc = getattr(lib, SYMBOL)(
-            m.data_ptr(), r.data_ptr(), out.data_ptr(), g, b, a, int(is_min), stream,
-        )
-    build.check(lib, SYMBOL, rc)
+    KERNEL(m.device, m.data_ptr(), r.data_ptr(), out.data_ptr(), *scratch,
+           geom.address, int(is_min))

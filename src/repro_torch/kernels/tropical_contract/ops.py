@@ -1,17 +1,22 @@
 """Wrapper of the tropical_contract kernel: the call the dense plans make.
 
 Given CPU tensors it computes the plain PyTorch version (``ref.py``); given
-CUDA tensors it checks them, allocates the output filled with the
-⊕-identity, launches the hand-written kernel on the current stream and
-counts the launch in :data:`LAUNCHES`.  There is no fallback: a CUDA input
-the kernel does not take, a failed build or a refused launch raises.
+CUDA tensors it checks them, takes the cached launch geometry
+(:func:`repro_torch.kernels.launch.contract_geometry`), allocates the
+output with ``new_empty`` (the kernel writes every output element, starting
+from the ⊕-identity), takes the kernel's workspace and tickets, kept per
+stream, where the geometry splits B, launches the hand-written kernel on
+the current stream and counts the launch in :data:`LAUNCHES`.  M and R may
+be any views with one unit-stride axis each; no copy is made.  There is no
+fallback: a CUDA input the kernel does not take, a failed build or a
+refused launch raises.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
+
+from repro_torch.kernels import launch as _launch
 
 from . import kernel
 from .ref import tropical_contract_ref
@@ -19,7 +24,7 @@ from .ref import tropical_contract_ref
 # kernel launches since the last reset_launches()
 LAUNCHES = {"tropical_contract": 0}
 
-_INT32_MAX = 2**31 - 1
+_DTYPES = (torch.float32,)
 
 
 def reset_launches() -> None:
@@ -31,20 +36,9 @@ def contract_op(m: torch.Tensor, r: torch.Tensor, is_min: bool = True) -> torch.
     float32 in, (G, A) float32 out."""
     if m.device.type == "cpu":
         return tropical_contract_ref(m, r, is_min)
-    if r.device != m.device:
-        raise ValueError(f"m on {m.device} and r on {r.device}: both must be on one CUDA device")
-    if m.dtype != torch.float32 or r.dtype != torch.float32:
-        raise TypeError(f"need float32 m and r, got {m.dtype}, {r.dtype}")
-    if m.dim() != 2 or r.dim() != 2 or m.shape[1] != r.shape[0]:
-        raise ValueError(f"need m (G, B) and r (B, A), got {tuple(m.shape)}, {tuple(r.shape)}")
-    g, b = m.shape
-    a = r.shape[1]
-    if min(g, b, a) < 1 or max(g, b, a) > _INT32_MAX:
-        raise ValueError(f"shapes {tuple(m.shape)} x {tuple(r.shape)} are out of range")
-    if not (m.is_contiguous() and r.is_contiguous()):
-        raise ValueError("m and r must be contiguous")
-    out = torch.full((g, a), math.inf if is_min else -math.inf, dtype=torch.float32,
-                     device=m.device)
-    kernel.launch(m, r, out, is_min)
+    geom = _launch.contract_args(m, r, _DTYPES)
+    out = m.new_empty((m.shape[0], r.shape[1]), dtype=torch.float32)
+    scratch = kernel.KERNEL.scratch(m.device, geom) if geom.ws else (None, None)
+    kernel.launch(m, r, out, scratch, geom, is_min)
     LAUNCHES["tropical_contract"] += 1
     return out

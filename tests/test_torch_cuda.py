@@ -9,9 +9,11 @@ it runs on a machine with a card and no JAX:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 
 Tolerances: min/max and sums of integer-valued floats must match exactly;
-gamma-valued sums agree to rtol 1e-5 (the kernels add in float32 with
-atomics, in an order that changes from run to run); float16 and uniform
-float32 contractions to the reference file's rtol 5e-3 / atol 1e-3."""
+the segment kernels' gamma-valued sums agree to rtol 1e-5 (they add in
+float32 with atomics, in an order that changes from run to run); float16
+and uniform float32 contractions to the reference file's rtol 5e-3 /
+atol 1e-3.  The contract kernels sum in a fixed order (split partials merge
+in block order), so two calls on the same inputs give the same bits."""
 
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.core import Query, Treant
 from repro_torch.core import semiring as sr
+from repro_torch.kernels import launch
 from repro_torch.kernels.segment_aggregate import ops
 from repro_torch.kernels.segment_aggregate.ref import segment_aggregate_ref
 from repro_torch.kernels.semiring_contract import ops as sc_ops
@@ -229,9 +232,112 @@ def test_cuda_contract_wrappers_reject_what_the_kernels_do_not_take(cuda):
     m = torch.zeros(4, 3, device=cuda)
     with pytest.raises(TypeError):
         sc_ops.contract_op(m, torch.zeros(3, 2, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):  # neither axis of r is unit-stride
+        sc_ops.contract_op(m, torch.zeros(3, 4, device=cuda)[:, ::2])
     with pytest.raises(ValueError):
-        sc_ops.contract_op(m, torch.zeros(2, 3, device=cuda).t())
+        tc_ops.contract_op(torch.zeros(8, 6, device=cuda)[::2, ::2], torch.zeros(3, 2, device=cuda))
     with pytest.raises(ValueError):
         tc_ops.contract_op(m, torch.zeros(4, 2, device=cuda))
     with pytest.raises(TypeError):
         tc_ops.contract_op(m.half(), torch.zeros(3, 2, device=cuda).half())
+
+
+# the regimes of csrc/contract.cuh at the dense path's record shapes and at
+# their edges: tall (B ≤ 64, A ≤ 32), wide (G·A ≤ 1024), tiled (the rest)
+REGIME_SHAPES = [
+    ((100_000, 16, 1), "tall"), ((100_000, 16, 8), "tall"), ((1, 16, 8), "tall"),
+    ((1000, 1, 3), "tall"), ((513, 64, 32), "tall"), ((77, 63, 5), "tall"),
+    ((16, 100_000, 8), "wide"), ((16, 100_000, 1), "wide"), ((1, 50_000, 8), "wide"),
+    ((60, 512, 1), "wide"), ((32, 10_000, 32), "wide"), ((1024, 3000, 1), "wide"),
+    ((1, 65, 1), "wide"), ((33, 4001, 31), "wide"), ((7, 100_003, 3), "wide"),
+    ((100, 70, 130), "tiled"), ((192, 100_000, 8), "tiled"), ((1025, 70, 1), "tiled"),
+]
+
+
+def _layouts(m, r):
+    """The operands as they lie, and as transposed views of (B, G) and
+    (A, B) tensors: the same values, the other unit-stride axis."""
+    yield "as_is", m, r
+    yield "transposed", m.t().contiguous().t(), r.t().contiguous().t()
+
+
+@pytest.mark.parametrize("shape,regime", REGIME_SHAPES, ids=[str(s) for s, _ in REGIME_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["f32", "f16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "mask"])
+def test_cuda_semiring_contract_regimes_are_exact(cuda, shape, regime, dtype, masked):
+    g, b, a = shape
+    m, r = _contract_inputs(g, b, a, g + 7 * a, cuda, dtype)
+    mask = (torch.rand(b, device=cuda) > 0.4).float() if masked else None
+    want = semiring_contract_ref(m, r, mask)
+    for label, mm, rr in _layouts(m, r):
+        assert launch.contract_args(mm, rr, (dtype,)).regime == regime
+        got = sc_ops.contract_op(mm, rr, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), label
+
+
+@pytest.mark.parametrize("shape,regime", REGIME_SHAPES, ids=[str(s) for s, _ in REGIME_SHAPES])
+@pytest.mark.parametrize("is_min", [True, False], ids=["min", "max"])
+def test_cuda_tropical_contract_regimes_are_exact(cuda, shape, regime, is_min):
+    g, b, a = shape
+    m, r = _contract_inputs(g, b, a, g + 5 * a, cuda)
+    ident = float("inf") if is_min else float("-inf")
+    m[torch.rand(m.shape, device=cuda) < 0.3] = ident  # absent tuples
+    m[0] = ident                                          # a row with no tuple at all
+    want = tropical_contract_ref(m, r, is_min)
+    for label, mm, rr in _layouts(m, r):
+        got = tc_ops.contract_op(mm, rr, is_min=is_min)
+        torch.cuda.synchronize()
+        assert not torch.isnan(got).any(), label
+        assert (got[0] == ident).all(), label
+        assert torch.equal(got, want), label
+
+
+def test_cuda_contract_reads_sliced_views_in_place(cuda):
+    """Views whose rows start off 16-byte alignment take the scalar loads."""
+    m, r = _contract_inputs(40, 20_003, 9, 3, cuda)
+    mm, rr = m[1:, 1:], r[1:, 1:]
+    assert not mm.is_contiguous() and not rr.is_contiguous()
+    assert torch.equal(sc_ops.contract_op(mm, rr), semiring_contract_ref(mm, rr))
+    assert torch.equal(tc_ops.contract_op(mm, rr), tropical_contract_ref(mm, rr))
+    mt = m.t().contiguous().t()[:, 2:]
+    assert torch.equal(sc_ops.contract_op(mt, r[2:]), semiring_contract_ref(mt, r[2:]))
+
+
+@pytest.mark.parametrize("shape", [(16, 100_000, 8), (192, 100_000, 8), (100_000, 16, 8)],
+                         ids=["wide", "tiled", "tall"])
+def test_cuda_semiring_contract_is_deterministic(cuda, shape):
+    """Gamma-valued float32 data: split partials merge in block order, so
+    two calls give the same bits."""
+    g, b, a = shape
+    torch.manual_seed(g + b)
+    gamma = torch.distributions.Gamma(torch.tensor(2.0, device=cuda),
+                                      torch.tensor(1 / 5000.0, device=cuda))
+    m, r = gamma.sample((g, b)), gamma.sample((b, a)) / 1e4
+    first, second = sc_ops.contract_op(m, r), sc_ops.contract_op(m, r)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, semiring_contract_ref(m, r), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(16, 100_000, 8), (192, 100_000, 8)], ids=["wide", "tiled"])
+@pytest.mark.parametrize("kernel", ["semiring", "tropical"])
+def test_cuda_split_contract_on_two_streams_at_once_is_exact(cuda, shape, kernel):
+    """Split launches on two streams overlap; each stream has its own
+    workspace and tickets, so neither merges the other's partials."""
+    g, b, a = shape
+    run, plain = ((sc_ops.contract_op, semiring_contract_ref) if kernel == "semiring" else
+                  (tc_ops.contract_op, tropical_contract_ref))
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    pairs = [_contract_inputs(g, b, a, seed, cuda) for seed in (1, 2)]
+    assert launch.contract_args(*pairs[0], (torch.float32,)).ws > 0
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for st, pair, got in zip(streams, pairs, outs):
+            with torch.cuda.stream(st):
+                got.append(run(*pair))
+    torch.cuda.synchronize()
+    for pair, got in zip(pairs, outs):
+        want = plain(*pair)
+        assert all(torch.equal(x, want) for x in got)

@@ -14,8 +14,10 @@ rtol 1e-5.
 Message signatures, computed/reused/dispatch counts and the store's miss
 counts must be equal."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import assert_factors_match, jax_catalog_from_port, port_catalog
 from repro.core import CJTEngine as JEngine
@@ -23,11 +25,15 @@ from repro.core import Query as JQuery
 from repro.core import Treant as JTreant
 from repro.core import jt_from_catalog as j_jt
 from repro.core import semiring as jsr
+from repro.core.plans import _build_dense_plan as j_dense_plan
 from repro.relational import schema as jschema
 from repro.relational.relation import mask_in as j_mask_in
 from repro.relational.sql import parse as j_parse
 from repro_torch.core import CJTEngine, Query, Treant, jt_from_catalog
+from repro_torch.core import plans as tplans
 from repro_torch.core import semiring as tsr
+from repro_torch.kernels.semiring_contract import ops as sc_ops
+from repro_torch.kernels.tropical_contract import ops as tc_ops
 from repro_torch.relational.relation import catalog_from_arrays, mask_in
 from repro_torch.relational.sql import parse
 from test_torch_treant import _factor_stats, quickstart
@@ -155,3 +161,39 @@ def test_custom_lifts_are_not_ported():
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         CJTEngine(jt_from_catalog(tcat), tcat, tsr.SUM, lifts={"F": lambda r: None},
                   device="cpu")
+
+
+@pytest.mark.parametrize("ring", ["sum", "tropical_max"])
+@pytest.mark.parametrize("order", ["shared_first", "shared_second"])
+def test_dense_plan_hands_the_kernel_a_view_of_the_factor(ring, order, monkeypatch):
+    """A two-factor star product F1 ⋈ F2 on the shared attr s, kept (x, y):
+    M is the projected F1 reshaped to (x, s).  When s comes first in F1, M
+    is the transposed view of F1's own storage, strides (1, |x|), and no
+    copy is made; the answers still equal the reference plan's (Pallas
+    kernels in interpret mode)."""
+    rng = np.random.default_rng(31)
+    doms = {"x": 5, "s": 300, "y": 3}
+    a1 = ("s", "x") if order == "shared_first" else ("x", "s")
+    f1 = rng.integers(0, 9, [doms[a] for a in a1]).astype(np.float32)
+    f2 = rng.integers(0, 9, (300, 3)).astype(np.float32)
+    structs = ((a1, tuple(doms[a] for a in a1)), (("s", "y"), (300, 3)))
+    module = sc_ops if ring == "sum" else tc_ops
+    real, seen = module.contract_op, []
+
+    def recording(m, r, *args, **kwargs):
+        seen.append((m, r))
+        return real(m, r, *args, **kwargs)
+
+    monkeypatch.setattr(module, "contract_op", recording)
+    t1, t2 = torch.as_tensor(f1), torch.as_tensor(f2)
+    plan = tplans._build_dense_plan(tsr.get(ring), structs, (), ("x", "y"))
+    got = plan.fn([t1, t2], ())
+    (m, r), = seen
+    assert tuple(m.shape) == (5, 300) and tuple(r.shape) == (300, 3)
+    assert m.untyped_storage().data_ptr() == t1.untyped_storage().data_ptr()
+    assert r.untyped_storage().data_ptr() == t2.untyped_storage().data_ptr()
+    assert m.stride() == ((1, 5) if order == "shared_first" else (300, 1))
+    want = j_dense_plan(jsr.get(ring), structs, (), ("x", "y")).fn(
+        [jnp.asarray(f1), jnp.asarray(f2)], ())
+    assert got.attrs == tuple(want.attrs) == ("x", "y")
+    np.testing.assert_array_equal(got.field.numpy(), np.asarray(want.field))

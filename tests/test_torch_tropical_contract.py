@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from repro.kernels.tropical_contract.ops import contract_op as j_contract_op
+from repro_torch.kernels import launch
 from repro_torch.kernels.tropical_contract import ops
+from repro_torch.kernels.tropical_contract.ref import tropical_contract_ref
 
 SHAPES = [(8, 8, 8), (64, 64, 64), (100, 70, 130), (256, 128, 200)]
 
@@ -45,4 +47,26 @@ def test_absent_tuples_stay_the_identity_without_nan(is_min):
     want = j_contract_op(jnp.asarray(m), jnp.asarray(r), is_min=is_min, interpret=True)
     assert not torch.isnan(got).any()
     assert (got[0] == ident).all()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("view", ["transposed", "sliced", "transposed_sliced"])
+@pytest.mark.parametrize("is_min", [True, False])
+def test_contract_op_on_views_matches_pallas_kernel(view, is_min):
+    """The dense plan hands over strided views; they read as the same values."""
+    rng = np.random.default_rng(23)
+    ident = np.inf if is_min else -np.inf
+    m = rng.integers(-20, 21, (29, 203)).astype(np.float32)
+    m[rng.random(m.shape) < 0.3] = ident
+    m, r = torch.as_tensor(m), torch.as_tensor(rng.integers(-20, 21, (203, 5)).astype(np.float32))
+    tm, tr = {"transposed": (m.T.contiguous().T, r.T.contiguous().T),
+              "sliced": (m[1:, 2:], r[2:, 1:]),
+              "transposed_sliced": (m.T.contiguous().T[:, 2:], r[2:])}[view]
+    assert not tm.is_contiguous()
+    with pytest.raises(ValueError, match="unit-stride"):
+        launch.contract_args(m[:, ::2], r[::2], (torch.float32,))
+    got = ops.contract_op(tm, tr, is_min=is_min)
+    want = j_contract_op(jnp.asarray(tm.numpy()), jnp.asarray(tr.numpy()), is_min=is_min,
+                         interpret=True)
+    assert torch.equal(got, tropical_contract_ref(tm, tr, is_min))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
