@@ -49,7 +49,30 @@ CUDA toolkit.  Phases:
    launched: checked against the plain version, timed beside their bound,
    the plain version and ``torch.matmul`` (float32, TF32 off; kernel 4 has
    no single PyTorch call);
-9. time each kernel on the inputs of its largest main-path launch.
+9. time each kernel on the inputs of its largest main-path launch;
+10. session phase, on a fresh copy of the slice's catalog (10M
+    opportunities): ``Treant.open_session`` with five linked vizzes (SUM by
+    stage, state, camp_type and title; MAX by stage) and seven typed events
+    (two SetFilters, a Drill, a SwapMeasure to MIN, a ToggleRelation, Undo,
+    ClearFilter) with ``idle()`` between them.  Per event it prints the
+    fan-out latency, the vizzes re-rendered, the batch group widths, the
+    ``level_segment_aggregate`` launches (one per batch group) and
+    ``batched_execs``; one group must be at least 2 wide;
+11. ingest phase, the same session: four ``flush`` ticks on Opp (four
+    append micro-batches of 0.5 % of the fact each, one delete micro-batch
+    tombstoning 0.1 % of the live rows and cancelling two fresh appends),
+    a User append and a User delete through ``Treant.update`` between ticks
+    2 and 3, and one compaction at tick 3; then a dense Treant
+    (``dense_rows_threshold=100_000``) takes a Role append, which must launch
+    ``semiring_contract``, and one Opp tick.  Per step it prints the latency,
+    the messages maintained, the fallbacks, the launches and
+    ``torch.cuda.memory_allocated`` / ``max_memory_allocated``; every tick
+    must launch ``segment_aggregate``.  Every viz rendered or read in phases
+    10-11 must equal a cold engine over its query's versions (rtol 1e-5 for
+    sums, exact for MIN/MAX), and the whole sequence at x5 (1M
+    opportunities) must give the same counts and answers on cuda and on the
+    CPU.  Launch counts of the two phases join the kernel records
+    (``launches_session``, ``launches_ingest``).
 
 Two times go with every kernel: ``ms``, wrapper calls back to back between
 CUDA events (what the main path pays, host cost included), and
@@ -66,6 +89,8 @@ last line.  Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -988,6 +1013,436 @@ def kernel_records(torch, K, sliced: dict, contract_rows: list[dict],
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 10: live dashboards — a declarative session, streamed ticks, updates
+# ---------------------------------------------------------------------------
+
+LIVE_CPU_SCALE = 5                 # the CPU comparison's catalog: x5 (1M opportunities)
+# tombstone-fraction base that the third tick crosses: each tick appends 2 %
+# of the fact and tombstones 0.1 % of the live rows, so the fraction reads
+# about 0.0010, 0.0019, 0.0028 after ticks 1-3, and the learned per-relation
+# threshold is base x (1.5 - the delete mix, about 0.048) = 0.0023
+LIVE_COMPACTION = 0.0016
+LIVE_TICKS = 4
+
+
+def live_catalog(schema, scale: int):
+    return schema.salesforce(n_opp=200_000 * scale, n_user=2_000 * scale,
+                             n_camp=500 * scale, n_acc=1_000 * scale)
+
+
+def live_spec(L):
+    amount = ("Opp", "amount")
+    return L.DashboardSpec(vizzes=tuple(
+        L.VizSpec(f"by_{g}", measure=amount, ring="sum", group_by=(g,))
+        for g in ("stage", "state", "camp_type", "title")
+    ) + (L.VizSpec("max_by_stage", measure=amount, ring="tropical_max", group_by=("stage",)),))
+
+
+def live_events(L) -> list:
+    return [
+        ("filter_state", L.SetFilter("state", values=(0, 1, 2, 3, 4), source="by_state")),
+        ("filter_camp_type", L.SetFilter("camp_type", lo=0, hi=4, source="by_camp_type")),
+        ("drill_role_name", L.Drill("by_stage", "role_name")),
+        ("swap_title_to_min", L.SwapMeasure("by_title", "Opp", "amount", ring="tropical_min")),
+        ("toggle_camp", L.ToggleRelation("Camp")),
+        ("undo", L.Undo()),
+        ("clear_state", L.ClearFilter("state")),
+    ]
+
+
+def _random_rows(np, rng, rel, n: int) -> tuple[dict, dict]:
+    codes = {a: rng.integers(0, rel.domains[a], n).astype(np.int32) for a in rel.attrs}
+    meas = {m: rng.gamma(2.0, 5_000.0, n).astype(np.float32) for m in rel.measures}
+    return codes, meas
+
+
+def _opp_tick(np, rng, buf, n_append: int) -> None:
+    """One tick shaped like ``benchmarks/bench_ingest.py``'s queue tick: four
+    append micro-batches, then one delete micro-batch that tombstones 0.1 % of
+    the live rows and cancels two of the tick's fresh appends."""
+    for _ in range(4):
+        codes, meas = _random_rows(np, rng, buf.base, n_append)
+        buf.append(codes, measures=meas)
+    base = buf.base
+    live = np.flatnonzero(base._materialized_weights() != 0.0)
+    mask = np.zeros(base.num_rows + buf.pending_appends, bool)
+    mask[rng.choice(live, len(live) // 1000, replace=False)] = True
+    mask[base.num_rows + rng.choice(buf.pending_appends, 2, replace=False)] = True
+    buf.delete(mask)
+
+
+def _reads(sess, vizzes=None) -> tuple[dict, dict, dict]:
+    """Read every viz: answers (on the host), (computed, reused) counts and
+    the queries read."""
+    answers, counts, queries = {}, {}, {}
+    for viz in vizzes or sess.vizzes:
+        r = sess.read(viz)
+        answers[viz] = r.factor.field.cpu()
+        counts[viz] = (r.stats.messages_computed, r.stats.messages_reused)
+        queries[viz] = sess.query_of(viz)
+    return answers, counts, queries
+
+
+def _update_summary(*ups) -> dict:
+    """Messages maintained, delta messages and fallbacks of ``UpdateResult``s,
+    with every ``DeltaStats`` (comparable across devices)."""
+    return dict(
+        maintained=sum(st.edges_maintained for u in ups for st in u.stats),
+        delta_messages=sum(st.delta_messages for u in ups for st in u.stats),
+        fallbacks=sum(u.queries_fallback for u in ups),
+        updates=[(u.relation, u.queries_maintained, u.queries_fallback,
+                  [dataclasses.asdict(st) for st in u.stats]) for u in ups],
+    )
+
+
+def _flush_summary(res) -> dict:
+    return dict(_update_summary(*res.updates, *res.compactions), watermark=res.watermark,
+                compactions=len(res.compactions))
+
+
+def live_drive(torch, np, K, L, cat, device: str) -> dict:
+    """The live-dashboard main path on one device: a declarative session
+    (five linked vizzes, seven events, think-time between them), four
+    streamed ticks on Opp with two User updates between ticks 2 and 3 (one
+    compaction at tick 3), then a dense Treant taking a Role update and one
+    Opp tick.  Returns every step's answers, counts and times, and the
+    launch counts of the session and ingest parts (counted from 0)."""
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def mem() -> dict:
+        if not cuda:
+            return {}
+        return {"allocated_mb": torch.cuda.memory_allocated() / 2**20,
+                "max_allocated_mb": torch.cuda.max_memory_allocated() / 2**20}
+
+    def batched(t) -> int:
+        return t.cache_stats()["plans"]["batched_execs"]
+
+    rng = np.random.default_rng(14)
+    n_append = cat.get("Opp").num_rows // 200
+    steps = []
+    reset_launches(K)
+    t = L.Treant(cat, ring=L.sr.SUM, device=device, compaction_threshold=LIVE_COMPACTION)
+    t0 = time.perf_counter()
+    sess = t.open_session(live_spec(L), name="live")
+    sync()
+    open_ms = (time.perf_counter() - t0) * 1e3
+    for label, event in live_events(L):
+        before, b0 = read_launches(K), batched(t)
+        res = sess.apply(event)
+        after = read_launches(K)
+        # group widths from the members' ExecStats: w members report width w
+        members: dict[int, int] = {}
+        for r in res.results.values():
+            if r.stats.batched_absorptions:
+                members[r.stats.batch_width] = members.get(r.stats.batch_width, 0) + 1
+        widths = sorted(w for w, n in members.items() for _ in range(n // w))
+        t0 = time.perf_counter()
+        edges = sess.idle()
+        sync()
+        steps.append(dict(
+            phase="session", label=label, fanout_ms=res.latency_s * 1e3,
+            vizzes=len(res.affected), group_widths=widths, batched_execs=batched(t) - b0,
+            level_launches=after["level_segment_aggregate"] - before["level_segment_aggregate"],
+            launches={k: after[k] - before[k] for k in after},
+            idle_ms=(time.perf_counter() - t0) * 1e3, idle_edges=edges,
+            answers={v: r.factor.field.cpu() for v, r in res.results.items()},
+            counts={v: (r.stats.messages_computed, r.stats.messages_reused)
+                    for v, r in res.results.items()},
+            queries={v: res.queries[v] for v in res.affected}, dense_rows_threshold=0,
+        ))
+    session_launches = read_launches(K)
+    wm0 = t.catalog.watermark
+    user_updates = 0
+    for tick in range(1, LIVE_TICKS + 1):
+        if tick == 3:  # between ticks 2 and 3: a User append, then a User delete
+            user = cat.get("User")
+            codes, _ = _random_rows(np, rng, user, 1_000)
+            appended, d_app = user.append_rows(codes)
+            gone = np.zeros(appended.num_rows, bool)
+            gone[rng.choice(user.num_rows, 500, replace=False)] = True
+            deleted, d_del = appended.delete_rows(gone)
+            for label, rel, delta in (("user_append", appended, d_app),
+                                      ("user_delete", deleted, d_del)):
+                before = read_launches(K)
+                t0 = time.perf_counter()
+                res = t.update(rel, delta)
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                after = read_launches(K)
+                answers, counts, queries = _reads(sess)
+                user_updates += 1
+                steps.append(dict(
+                    phase="ingest", label=label, update_ms=ms, memory=mem(),
+                    launches={k: after[k] - before[k] for k in after},
+                    summary=_update_summary(res), answers=answers, counts=counts,
+                    queries=queries, dense_rows_threshold=0,
+                ))
+        buf = t.stream("Opp")
+        _opp_tick(np, rng, buf, n_append)
+        before = read_launches(K)
+        t0 = time.perf_counter()
+        res = t.flush()
+        sync()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        after = read_launches(K)
+        answers, counts, queries = _reads(sess)
+        t1 = time.perf_counter()
+        edges = sess.idle()
+        sync()
+        steps.append(dict(
+            phase="ingest", label=f"tick_{tick}", flush_ms=flush_ms, memory=mem(),
+            opp_rows=t.catalog.get("Opp").num_rows,
+            tombstones=t.catalog.get("Opp").tombstone_count,
+            launches={k: after[k] - before[k] for k in after}, summary=_flush_summary(res),
+            idle_ms=(time.perf_counter() - t1) * 1e3, idle_edges=edges,
+            answers=answers, counts=counts, queries=queries, dense_rows_threshold=0,
+        ))
+    ingest = dataclasses.asdict(t.ingest)
+    ingest["watermarks"] = t.catalog.watermark - wm0
+    ingest["user_updates"] = user_updates
+    sess.close()
+    del t, sess
+    # the dense Treant on the committed catalog: every dimension bag dense
+    td = L.Treant(cat, ring=L.sr.SUM, device=device, dense_rows_threshold=DENSE_ROWS,
+                  compaction_threshold=0.0)
+    t0 = time.perf_counter()
+    dsess = td.open_session(live_spec(L), name="dense")
+    sync()
+    dense_open_ms = (time.perf_counter() - t0) * 1e3
+    role = cat.get("Role")
+    codes, _ = _random_rows(np, rng, role, 4)
+    new_rel, delta = role.append_rows(codes)
+    before = read_launches(K)
+    t0 = time.perf_counter()
+    res = td.update(new_rel, delta)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = read_launches(K)
+    answers, counts, queries = _reads(dsess)
+    steps.append(dict(
+        phase="dense", label="role_append", update_ms=ms, memory=mem(),
+        launches={k: after[k] - before[k] for k in after}, summary=_update_summary(res),
+        answers=answers, counts=counts, queries=queries, dense_rows_threshold=DENSE_ROWS,
+    ))
+    buf = td.stream("Opp")
+    codes, meas = _random_rows(np, rng, buf.base, n_append)
+    buf.append(codes, measures=meas)
+    before = read_launches(K)
+    t0 = time.perf_counter()
+    res = td.flush()
+    sync()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    after = read_launches(K)
+    answers, counts, queries = _reads(dsess)
+    steps.append(dict(
+        phase="dense", label="opp_tick", flush_ms=flush_ms, memory=mem(),
+        launches={k: after[k] - before[k] for k in after}, summary=_flush_summary(res),
+        answers=answers, counts=counts, queries=queries, dense_rows_threshold=DENSE_ROWS,
+    ))
+    dsess.close()
+    total = read_launches(K)
+    return dict(
+        steps=steps, open_ms=open_ms, dense_open_ms=dense_open_ms, ingest=ingest,
+        launches_session=session_launches,
+        launches_ingest={k: total[k] - session_launches[k] for k in total},
+    )
+
+
+@contextlib.contextmanager
+def timing_methods(torch, targets: list, totals: dict):
+    """Add each wrapped method's synced wall time to ``totals[label]`` while
+    the block runs (``targets``: (label, class, method name))."""
+    saved = []
+    for label, cls, name in targets:
+        real = getattr(cls, name)
+
+        def timed(*a, _real=real, _label=label, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _real(*a, **kw)
+            torch.cuda.synchronize()
+            totals[_label] = totals.get(_label, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+
+        saved.append((cls, name, real))
+        setattr(cls, name, timed)
+    try:
+        yield
+    finally:
+        for cls, name, real in saved:
+            setattr(cls, name, real)
+
+
+def live_profile(torch, np, L, cat, report: dict) -> None:
+    """Where the live phases' time goes: the session (open, seven events with
+    think-time) and one flush tick under ``torch.profiler``, then one more
+    tick with its host time split into coalescing, delta maintenance
+    (``apply_delta``), the prewarm (``execute``) and the rest (commit,
+    re-snapshot, scheduling)."""
+    rng = np.random.default_rng(41)
+    t = L.Treant(cat, ring=L.sr.SUM, device="cuda", compaction_threshold=0.0)
+    sess = t.open_session(live_spec(L), name="warm")  # uploads and plan builds
+    sess.close()
+
+    def run():
+        s = t.open_session(live_spec(L), name="profiled")
+        for _, event in live_events(L):
+            s.apply(event)
+            s.idle()
+        _opp_tick(np, rng, t.stream("Opp"), cat.get("Opp").num_rows // 200)
+        t.flush()
+        return s
+
+    profile_phase(torch, "live", run, report)
+    _opp_tick(np, rng, t.stream("Opp"), cat.get("Opp").num_rows // 200)
+    split: dict = {}
+    targets = [("coalesce", L.StreamBuffer, "coalesce"), ("apply_delta", L.CJTEngine,
+                                                           "apply_delta"),
+               ("prewarm_execute", L.CJTEngine, "execute")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timing_methods(torch, targets, split):
+        t.flush()
+    torch.cuda.synchronize()
+    split["flush"] = (time.perf_counter() - t0) * 1e3
+    split["rest"] = split["flush"] - sum(v for k, v in split.items() if k != "flush")
+    report["live"]["tick_split_ms"] = split
+    print("live: one more tick, host time split (synced): " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in split.items()), flush=True)
+
+
+def live_cold_checks(torch, L, cat, record: dict, device: str) -> int:
+    """Hold every rendered or read viz against a cold engine (fresh message
+    store) over the versions its query snapshots: rtol 1e-5 for sums, exact
+    for MIN/MAX.  Returns the number of answers checked."""
+    jt = L.jt_from_catalog(cat)
+    caches: dict = {}
+    n = 0
+    for step in record["steps"]:
+        thr = step["dense_rows_threshold"]
+        for viz, q in step["queries"].items():
+            key = (q.ring_name, thr)
+            if key not in caches:
+                caches[key] = L.PlanCache(L.sr.get(q.ring_name), device)
+            eng = L.CJTEngine(jt, cat, L.sr.get(q.ring_name), store=L.MessageStore(),
+                              dense_rows_threshold=thr, plan_cache=caches[key], device=device)
+            want = eng.execute(q)[0].field.cpu()
+            got = step["answers"][viz]
+            what = f"{step['phase']} {step['label']} {viz}"
+            check(bool(torch.isfinite(got).all()) or q.ring_name != "sum",
+                  f"{what}: non-finite answer")
+            if q.ring_name.startswith("tropical"):
+                check(torch.equal(got, want), f"{what}: differs from a cold rebuild")
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=0,
+                                           msg=f"{what}: differs from a cold rebuild")
+            n += 1
+    return n
+
+
+def live_compare(torch, a: dict, b: dict, what: str) -> None:
+    """Two drives of one sequence (cuda and the CPU): equal counts, flush and
+    update summaries, and answers (rtol 1e-5 for sums, exact for MIN/MAX)."""
+    check(len(a["steps"]) == len(b["steps"]), f"{what}: step lists differ")
+    check(a["ingest"] == b["ingest"], f"{what}: ingest counters {a['ingest']} != {b['ingest']}")
+    for x, y in zip(a["steps"], b["steps"]):
+        label = f"{what} {x['phase']} {x['label']}"
+        check(x["counts"] == y["counts"], f"{label}: counts {x['counts']} != {y['counts']}")
+        check(x.get("summary") == y.get("summary"), f"{label}: summaries differ")
+        for viz, g in x["answers"].items():
+            c = y["answers"][viz]
+            if x["queries"][viz].ring_name.startswith("tropical"):
+                check(torch.equal(g, c), f"{label} {viz}: MIN/MAX differs")
+            else:
+                torch.testing.assert_close(g, c, rtol=1e-5, atol=0, msg=f"{label} {viz}")
+
+
+def live_phase(torch, np, K, L, schema, report: dict) -> dict:
+    """Phases 10-11 (session, ingest) at full size on the card, held against
+    cold rebuilds on the card and the same sequence on the CPU."""
+    t0 = time.perf_counter()
+    cat = live_catalog(schema, SCALE)
+    print(f"live: catalog of {cat.get('Opp').num_rows} opportunities in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    rec = live_drive(torch, np, K, L, cat, "cuda")
+    print(f"live: open_session {rec['open_ms']:.1f} ms (5 vizzes, union-carry calibration); "
+          f"device memory before the phase {base_mb:.1f} MiB", flush=True)
+    for st in rec["steps"]:
+        if st["phase"] == "session":
+            print(f"session: {st['label']:18s} fan-out {st['fanout_ms']:8.3f} ms, "
+                  f"{st['vizzes']} vizzes, batch groups {st['group_widths']}, "
+                  f"level_segment_aggregate launches {st['level_launches']}, "
+                  f"batched_execs {st['batched_execs']}; idle {st['idle_ms']:.1f} ms "
+                  f"({st['idle_edges']} edges)", flush=True)
+            check(st["level_launches"] == len(st["group_widths"]) == st["batched_execs"],
+                  f"session {st['label']}: {st['level_launches']} level launches for "
+                  f"{len(st['group_widths'])} batch groups")
+    check(any(w >= 2 for st in rec["steps"] if st["phase"] == "session"
+              for w in st["group_widths"]), "no batch group of width >= 2 ran on the card")
+    for st in rec["steps"]:
+        if st["phase"] == "session":
+            continue
+        s, m = st["summary"], st["memory"]
+        ms = st.get("flush_ms", st.get("update_ms"))
+        print(f"{st['phase']}: {st['label']:12s} {ms:9.3f} ms, messages maintained "
+              f"{s['maintained']}, delta messages {s['delta_messages']}, fallbacks "
+              f"{s['fallbacks']}, launches {st['launches']}, memory_allocated "
+              f"{m['allocated_mb']:.1f} MiB, max_memory_allocated {m['max_allocated_mb']:.1f} MiB",
+              flush=True)
+        if st["label"].startswith("tick") or st["label"] == "opp_tick":
+            check(st["launches"]["segment_aggregate"] > 0,
+                  f"{st['label']}: segment_aggregate never launched")
+    ticks = [st for st in rec["steps"] if st["label"].startswith("tick")]
+    compacted = [st["label"] for st in ticks if st["summary"]["compactions"]]
+    check(compacted == ["tick_3"], f"compaction at {compacted}, expected tick_3 only")
+    ing = rec["ingest"]
+    apart = ing["compactions"] + ing["user_updates"]
+    check(ing["version_bumps"] - apart == ing["delta_sweeps"] - apart == ing["ticks"]
+          == LIVE_TICKS, f"ingest counters {ing}")
+    (role,) = [st for st in rec["steps"] if st["label"] == "role_append"]
+    check(role["launches"]["semiring_contract"] > 0,
+          f"the dense Role update launched no semiring_contract: {role['launches']}")
+    t0 = time.perf_counter()
+    n = live_cold_checks(torch, L, cat, rec, "cuda")
+    print(f"live: {n} answers equal cold rebuilds on the card "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    small = live_catalog(schema, LIVE_CPU_SCALE)
+    n_small = small.get("Opp").num_rows
+    cpu = live_drive(torch, np, K, L, small, "cpu")
+    cpu_s = time.perf_counter() - t0
+    gpu_small = live_drive(torch, np, K, L, live_catalog(schema, LIVE_CPU_SCALE), "cuda")
+    live_compare(torch, gpu_small, cpu, f"x{LIVE_CPU_SCALE}")
+    print(f"live: the sequence at x{LIVE_CPU_SCALE} ({n_small} opportunities at the start) "
+          f"gives the same counts and answers on cuda and on the CPU (CPU run {cpu_s:.1f} s)",
+          flush=True)
+    print(f"live: launches, session phase {rec['launches_session']}; ingest phase "
+          f"{rec['launches_ingest']}", flush=True)
+
+    def strip(step):
+        return {k: v for k, v in step.items() if k not in ("answers", "queries")}
+
+    report["live"] = dict(
+        n_opp=200_000 * SCALE, open_ms=rec["open_ms"], dense_open_ms=rec["dense_open_ms"],
+        ingest=ing, launches_session=rec["launches_session"],
+        launches_ingest=rec["launches_ingest"], base_memory_mb=base_mb,
+        steps=[strip(st) for st in rec["steps"]], cold_checked=n,
+        cpu_scale=LIVE_CPU_SCALE, cpu_s=cpu_s,
+    )
+    live_profile(torch, np, L, cat, report)
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -1008,7 +1463,10 @@ def main() -> int:
 
     import numpy as np
 
-    from repro_torch.core import CJTEngine, Query, Treant, insert_empty_bag, jt_from_catalog
+    from repro_torch.core import (
+        CJTEngine, ClearFilter, DashboardSpec, Drill, MessageStore, PlanCache, Query, SetFilter,
+        SwapMeasure, ToggleRelation, Treant, Undo, VizSpec, insert_empty_bag, jt_from_catalog,
+    )
     from repro_torch.core import semiring as sr
     from repro_torch.kernels import build, launch
     from repro_torch.kernels.segment_aggregate import kernel as seg_kernel
@@ -1020,7 +1478,7 @@ def main() -> int:
     from repro_torch.kernels.tropical_contract import kernel as tc_kernel
     from repro_torch.kernels.tropical_contract import ops as tc_ops
     from repro_torch.kernels.tropical_contract import ref as tc_ref
-    from repro_torch.relational import schema
+    from repro_torch.relational import StreamBuffer, schema
     from repro_torch.relational.relation import mask_in
     from repro_torch.relational.sql import parse
 
@@ -1028,6 +1486,13 @@ def main() -> int:
         seg_kernel=seg_kernel, seg_ops=seg_ops, seg_ref=seg_ref, sc_kernel=sc_kernel,
         sc_ops=sc_ops, sc_ref=sc_ref, tc_kernel=tc_kernel, tc_ops=tc_ops, tc_ref=tc_ref,
         launch=launch, build=build,
+    )
+    L = types.SimpleNamespace(
+        Treant=Treant, CJTEngine=CJTEngine, MessageStore=MessageStore, PlanCache=PlanCache,
+        DashboardSpec=DashboardSpec, VizSpec=VizSpec, SetFilter=SetFilter,
+        ClearFilter=ClearFilter, Drill=Drill, SwapMeasure=SwapMeasure,
+        ToggleRelation=ToggleRelation, Undo=Undo, sr=sr, jt_from_catalog=jt_from_catalog,
+        StreamBuffer=StreamBuffer,
     )
     report: dict = {}
     started = time.perf_counter()
@@ -1054,6 +1519,11 @@ def main() -> int:
         contract_rows = contract_shapes_phase(
             torch, K, {**dense["captured"], **fig21}, report)
         records = kernel_records(torch, K, sliced, contract_rows, dense)
+        print("live dashboards (session and ingest phases):", flush=True)
+        live = live_phase(torch, np, K, L, schema, report)
+        for r in records:
+            r["launches_session"] = live["launches_session"][r["name"]]
+            r["launches_ingest"] = live["launches_ingest"][r["name"]]
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

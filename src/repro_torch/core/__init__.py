@@ -26,15 +26,29 @@ _EXPORTS = {
     "CJTEngine": "calibration",
     "MessageStore": "calibration",
     "ExecStats": "calibration",
+    "DeltaStats": "calibration",
     "PlanCache": "plans",
     "PlanStats": "plans",
     "DrainCalibration": "predictive",
     "ThinkTimeBudget": "predictive",
     "ThinkTimePolicy": "predictive",
+    "ApplyResult": "dashboard",
+    "ClearFilter": "dashboard",
+    "DashboardSpec": "dashboard",
+    "Drill": "dashboard",
     "InteractionResult": "dashboard",
+    "Rollup": "dashboard",
     "Session": "dashboard",
+    "SetFilter": "dashboard",
+    "SwapMeasure": "dashboard",
     "ThinkTimeScheduler": "dashboard",
+    "ToggleRelation": "dashboard",
+    "Undo": "dashboard",
+    "VizSpec": "dashboard",
+    "FlushResult": "treant",
+    "IngestStats": "treant",
     "Treant": "treant",
+    "UpdateResult": "treant",
 }
 
 __all__ = sorted(_EXPORTS)

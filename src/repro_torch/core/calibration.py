@@ -28,9 +28,15 @@ paper's Appendix B shortcut views), a bag emptied by R̄ (``removed``), a bag
 of several relations, or a relation of at most ``dense_rows_threshold``
 rows — takes the dense path: densified base factors ⊗ incoming messages,
 contracted by ``PlanCache.run_dense`` (the semiring_contract and
-tropical_contract kernels for two-factor matrix products).  Delta
-maintenance, batched fan-out (``execute_many``) and custom lifts are not
-ported yet.
+tropical_contract kernels for two-factor matrix products).
+
+- ``execute_many`` (batched fan-out) absorbs sibling queries that share a
+  batch signature in one ``PlanCache.run_sparse_batch`` call.
+- ``apply_delta`` (delta calibration) maintains a query's cached messages
+  across a data update: the n−1 messages directed away from the updated bag
+  become old ⊕ ΔY under bumped signatures.
+
+Custom lifts are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.relational.relation import LRU, Catalog, Relation, lift_rows
+from repro_torch.relational.relation import LRU, Catalog, Delta, Relation, lift_rows
 from . import semiring as sr
 from .factor import Factor, contract
 from .hypertree import JTree
@@ -58,6 +64,11 @@ from .plans import (
     resolve_device,
 )
 from .query import Query
+
+
+# widest rows·width volume one batched absorption launch carries; wider
+# groups split into chunks of at least 2 members (the reference's default)
+SPARSE_BATCH_ELEMS = 1 << 18
 
 
 def _h(*parts: str) -> str:
@@ -98,6 +109,9 @@ class MessageStore:
         self.tag: str | None = None
         self._producer: dict[str, str] = {}
         self.cross_tag_hits = 0
+        # sig -> consumer session ids that have HIT the entry while tagged:
+        # close() must not drop an entry a sibling live session still reads
+        self._users: dict[str, set[str]] = {}
         # per-entry byte sizes (overwrite-safe nbytes accounting) and
         # recompute-cost hints (``CJTEngine`` passes its ``estimate_edge_cost``
         # miss cost at put time) driving priority eviction
@@ -188,6 +202,12 @@ class MessageStore:
         owner = self._producer.get(sig)
         if self.tag is not None and owner is not None and owner != self.tag:
             self.cross_tag_hits += 1
+        # consumer refcount: remember which session read this entry (tags are
+        # "{session}:{viz}"), so drop_producer can keep shared entries alive
+        if self.tag is not None and owner is not None:
+            sid = self.tag.split(":", 1)[0]
+            if not owner.startswith(f"{sid}:"):
+                self._users.setdefault(sig, set()).add(sid)
 
     def contains(self, base_sig: str, gamma: tuple[str, ...]) -> bool:
         if self.full_sig(base_sig, gamma) in self._data:
@@ -273,6 +293,34 @@ class MessageStore:
         else:
             self._pinned.pop(sig, None)
 
+    def apply_delta(self, old_base: str, new_base: str, gamma: tuple[str, ...],
+                    delta: Factor | None) -> Factor | None:
+        """Maintain one message across a data update: new = old ⊕ Δ.
+
+        Looks up the cached message under the *old* signature (Σ-widening
+        applies), combines it with the delta factor, and stores the result
+        under the bumped *new* signature.  ``delta=None`` means the update is
+        value-preserving (a compaction) — the old message is re-keyed
+        verbatim.  The old message's direct pin refcount migrates to the new
+        generation (the old one stays servable but evictable); a message
+        pinned only through a wider-γ variant migrates when that wider query
+        is maintained.  Returns None (storing nothing) when there is no
+        cached message to maintain.
+        """
+        old = self.get(old_base, gamma)
+        if old is None:
+            self.misses -= 1  # probe, not a serving miss
+            return None
+        new = old if delta is None else old.add(delta)
+        # pin BEFORE put so a byte-bounded store cannot evict the new entry
+        # inside put()'s eviction sweep
+        moved = self._pinned.pop(self.full_sig(old_base, gamma), 0)
+        if moved:
+            new_sig = self.full_sig(new_base, gamma)
+            self._pinned[new_sig] = self._pinned.get(new_sig, 0) + moved
+        self.put(new_base, gamma, new, cost=self._cost.get(self.full_sig(old_base, gamma)))
+        return new
+
     @property
     def pinned_nbytes(self) -> int:
         """Bytes held by pinned entries — the floor no budget can go below."""
@@ -289,8 +337,37 @@ class MessageStore:
         self.nbytes -= self._sizes.pop(sig, factor_nbytes(f))
         self._producer.pop(sig, None)
         self._cost.pop(sig, None)
+        self._users.pop(sig, None)
         self._drop_widen(sig)
         return True
+
+    def drop_producer(self, prefix: str) -> int:
+        """Session GC: drop unpinned entries whose producer tag starts with
+        ``prefix`` (a session passes ``f"{sid}:"``).  Untagged entries
+        (offline base calibration) are never dropped here; an entry another
+        live session has read is handed to that reader instead.  Returns the
+        number of entries dropped."""
+        sid = prefix.split(":", 1)[0]
+        # this session stops being a consumer of anything it read
+        for users in self._users.values():
+            users.discard(sid)
+        sigs = [s for s, owner in self._producer.items() if owner.startswith(prefix)]
+        n = 0
+        for sig in sigs:
+            survivors = self._users.get(sig)
+            if survivors:
+                # hand ownership to the (deterministically) first surviving reader
+                heir = sorted(survivors)[0]
+                survivors.discard(heir)
+                self._producer[sig] = f"{heir}:*"
+                if not survivors:
+                    self._users.pop(sig, None)
+                continue
+            if sig in self._pinned:
+                continue
+            if self._remove(sig):
+                n += 1
+        return n
 
     def _evict(self):
         """Byte-budget eviction: pin-state → recency → recompute cost.
@@ -334,7 +411,8 @@ class MessageStore:
             dict(self._pinned), self.nbytes,
             (self.hits, self.misses, self.widen_hits),
             (dict(self._producer), self.cross_tag_hits),
-            (dict(self._sizes), dict(self._cost), self.evictions),
+            (dict(self._sizes), dict(self._cost),
+             {k: set(v) for k, v in self._users.items()}, self.evictions),
         )
 
     def restore(self, snap):
@@ -346,7 +424,8 @@ class MessageStore:
         self._producer, self.cross_tag_hits = dict(snap[5][0]), snap[5][1]
         self._sizes = dict(snap[6][0])
         self._cost = dict(snap[6][1])
-        self.evictions = snap[6][2]
+        self._users = {k: set(v) for k, v in snap[6][2].items()}
+        self.evictions = snap[6][3]
         self._widen_bysize = {
             b: sorted((len(g), g, s) for g, s in d.items())
             for b, d in self._widen.items()
@@ -377,6 +456,12 @@ class ExecStats:
     plan_traces: int = 0
     plan_hits: int = 0
     kernel_execs: int = 0
+    # batched absorption (execute_many): 1 when this query's absorption rode
+    # a sibling batch; batch_width is that batch's total width, and
+    # batch_sessions counts the distinct sessions that batch served
+    batched_absorptions: int = 0
+    batch_width: int = 0
+    batch_sessions: int = 0
     # realized Steiner tree (§3.4.2): bags touched by recomputed messages
     # plus the absorption root — 1 when everything was served from cache
     steiner_size: int = 0
@@ -387,6 +472,17 @@ class ExecStats:
     level_batched_execs: int = 0
     level_batch_width: int = 0
     calibration_dispatches: int = 0
+
+
+@dataclasses.dataclass
+class DeltaStats:
+    """Outcome of one ``CJTEngine.apply_delta`` maintenance pass."""
+
+    delta_rows: int = 0          # |Δ| — rows in the signed delta
+    delta_messages: int = 0      # ΔY factors computed (≤ n−1 vs 2(n−1) full)
+    edges_maintained: int = 0    # cached messages updated as old ⊕ Δ
+    edges_skipped: int = 0       # outward edges with nothing cached to maintain
+    fallback: bool = False       # ring cannot absorb the delta (e.g. MIN delete)
 
 
 @dataclasses.dataclass
@@ -525,16 +621,38 @@ class CJTEngine:
         return sig
 
     def gamma_carry(self, q: Query, u: str, v: str) -> tuple[str, ...]:
-        """γ attrs that must survive the u→v message beyond the separator."""
-        key = (q.group_by, "γ", u, v)
+        """γ attrs that must survive the u→v message beyond the separator.
+
+        A γ attr that no relation left in the query's join scope carries
+        (R̄ removed every relation holding it) is carried by no message.  The
+        reference keeps it in the carry and its level calibration then fails
+        on the attr (ROADMAP Queue 3); an execute that avoids that pass
+        answers without the attr in both packages.
+        """
+        key = (q.group_by, q.removed, "γ", u, v)
         hit = self._sig_memo.get(key)
         if hit is not None:
             return hit
         sub = self.jt.subtree_attrs(u, v)
         sep = set(self.jt.separator(u, v))
-        out = tuple(sorted((set(q.group_by) & sub) - sep))
+        out = tuple(sorted((set(q.group_by) & sub) - sep - self._hidden_attrs(q)))
         self._sig_memo[key] = out
         return out
+
+    def _hidden_attrs(self, q: Query) -> frozenset[str]:
+        """The query's γ attrs that no relation outside ``q.removed`` carries."""
+        if not q.removed:
+            return frozenset()
+        visible = set()
+        for r in self.jt.mapping:
+            if r not in q.removed:
+                visible.update(self.catalog.get(r, q.version_of(r)).attrs)
+        return frozenset(a for a in q.group_by if a not in visible)
+
+    def _root_attrs(self, q: Query, root: str, keep: Sequence[str]) -> tuple[str, ...]:
+        """The attrs of ``keep`` an absorption at ``root`` can produce."""
+        avail = set(self.jt.subtree_attrs(root, None)) - self._hidden_attrs(q)
+        return tuple(a for a in dict.fromkeys(keep) if a in avail)
 
     def edge_sig(self, q: Query, u: str, v: str, placement) -> str:
         """Message identity (Prop. 2): u's annotated subtree and the
@@ -577,9 +695,7 @@ class CJTEngine:
         """Absorption at root (§3.3.1) then projection to γ (or ``keep``)."""
         placement = self.place_predicates(q) if placement is None else placement
         incoming = [self.message(q, i, root, placement, stats) for i in self.jt.neighbors(root)]
-        keep = tuple(keep) if keep is not None else q.group_by
-        avail = set(self.jt.subtree_attrs(root, None))
-        out_attrs = tuple(a for a in dict.fromkeys(keep) if a in avail)
+        out_attrs = self._root_attrs(q, root, q.group_by if keep is None else keep)
         return self._bag_contract(q, root, incoming, out_attrs, placement, stats)
 
     # -- bag-local contraction -------------------------------------------------
@@ -778,6 +894,101 @@ class CJTEngine:
         if sync:
             synchronize([out.field])
         return out, stats
+
+    def execute_many(self, queries: Sequence[Query], sync: bool = True,
+                     tags: Sequence[str | None] | None = None
+                     ) -> list[tuple[Factor, ExecStats]]:
+        """Execute several queries, batching structurally identical absorptions.
+
+        The crossfilter fan-out path: each query's message passing runs in
+        turn (warm events are pure store hits there), then the root
+        absorptions are grouped by :func:`~repro_torch.core.plans.absorb_batch_key`
+        and each group of siblings runs as ONE ``PlanCache.run_sparse_batch``
+        call — one ``level_segment_aggregate`` launch on the card.
+        ``tags[i]`` is the store's producer tag while query i's messages
+        materialize.  Batched and one-by-one execution are bit-identical on
+        integer-valued data; dense bags and ``use_plans=False`` engines absorb
+        one query at a time.
+        """
+        with self.store.inflight():
+            return self._execute_many_inflight(queries, sync, tags)
+
+    def _execute_many_inflight(self, queries, sync=True, tags=None
+                               ) -> list[tuple[Factor, ExecStats]]:
+        results: list[Factor | None] = [None] * len(queries)
+        all_stats: list[ExecStats] = []
+        roots: list[str] = []
+        deferred: list[tuple[int, AbsorbItem]] = []
+        for i, q in enumerate(queries):
+            stats = ExecStats()
+            all_stats.append(stats)
+            placement = self.place_predicates(q)
+            root = self.choose_root(q, placement)
+            roots.append(root)
+            with self._tagged(tags[i] if tags is not None else None):
+                incoming = [self.message(q, u, root, placement, stats)
+                            for u in self.jt.neighbors(root)]
+            out_attrs = self._root_attrs(q, root, q.group_by)
+            rels = self._bag_rels(q, root)
+            if (len(rels) == 1 and rels[0].num_rows > self.dense_rows_threshold
+                    and self.plans is not None and len(queries) > 1):
+                stats.rows_scanned += rels[0].num_rows
+                deferred.append((i, AbsorbItem(
+                    rel=rels[0], vals=self._lift(q, rels[0]), incoming=tuple(incoming),
+                    preds=placement.get(root, ()), out_attrs=out_attrs,
+                )))
+            else:
+                results[i] = self._bag_contract(q, root, incoming, out_attrs, placement, stats)
+        groups: dict[tuple, list[tuple[int, AbsorbItem]]] = {}
+        for i, item in deferred:
+            groups.setdefault(absorb_batch_key(self.ring, item), []).append((i, item))
+        for group in groups.values():
+            for members in self._absorb_chunks(group):
+                if len(members) == 1:
+                    i, item = members[0]
+                    results[i] = self.plans.run_sparse(
+                        self.catalog, item.rel, item.vals, list(item.incoming),
+                        list(item.preds), item.out_attrs, all_stats[i],
+                    )
+                    continue
+                fs = self.plans.run_sparse_batch(
+                    self.catalog, [item for _, item in members],
+                    [all_stats[i] for i, _ in members],
+                )
+                for (i, _), f in zip(members, fs):
+                    results[i] = f
+                # how many distinct sessions this ONE batch served (tags are
+                # "{session}:{viz}")
+                if tags is not None:
+                    owners = {tags[i].split(":", 1)[0] for i, _ in members
+                              if tags[i] is not None}
+                    for i, _ in members:
+                        all_stats[i].batch_sessions = len(owners)
+                    if len(owners) > 1:
+                        ps = self.plans.stats
+                        ps.cross_session_execs += 1
+                        ps.cross_session_width = max(ps.cross_session_width, len(owners))
+        outs: list[tuple[Factor, ExecStats]] = []
+        for i, q in enumerate(queries):
+            out = results[i].project_to(q.group_by)
+            stats = all_stats[i]
+            touched = {b for edge in stats.recomputed_edges for b in edge}
+            stats.steiner_size = len(touched | {roots[i]})
+            outs.append((out, stats))
+        if sync:
+            synchronize([f.field for f, _ in outs])
+        return outs
+
+    def _absorb_chunks(self, members: list[tuple[int, AbsorbItem]]
+                       ) -> list[list[tuple[int, AbsorbItem]]]:
+        """Split one batch group into chunks of at most
+        ``SPARSE_BATCH_ELEMS`` rows·width, keeping at least 2 members per
+        chunk so siblings still share a launch at any fact-table size."""
+        if len(members) <= 2:
+            return [members]
+        rows = max(members[0][1].rel.num_rows, 1)
+        cap = max(2, SPARSE_BATCH_ELEMS // rows)
+        return [members[j:j + cap] for j in range(0, len(members), cap)]
 
     def calibrate(self, q: Query, root: str | None = None, pin: bool = False,
                   batch: bool | None = None) -> ExecStats:
@@ -1039,6 +1250,111 @@ class CJTEngine:
         while any(not p.done for p in plans):
             self.run_calibration_level(plans, stats_list)
         return stats_list, effective
+
+    def unpin_query(self, q: Query) -> int:
+        """Release this query's calibration pins (session GC).  Messages stay
+        cached and servable; only the eviction exemption goes.  Returns the
+        number of previously pinned edges released."""
+        placement = self.place_predicates(q)
+        n = 0
+        for u, v in self.jt.directed_edges():
+            base = self.edge_sig(q, u, v, placement)
+            gamma = self.gamma_carry(q, u, v)
+            if self.store.full_sig(base, gamma) in self.store._pinned:
+                n += 1
+            self.store.unpin(base, gamma)
+        return n
+
+    # -- delta calibration (data updates) ---------------------------------------
+    def delta_message(self, q_new: Query, q_delta: Query, u: str, v: str, placement,
+                      via: str | None = None, delta_in: Factor | None = None) -> Factor:
+        """ΔY(u→v): the u→v contraction with the changed input swapped for its delta.
+
+        Bag contraction is multilinear in the bag's relations and in each
+        incoming message, so replacing exactly the changed input by its
+        ⊕-difference yields the ⊕-difference of the output.  ``via=None``
+        means u hosts the updated relation and ``q_delta`` (which pins that
+        relation to its delta-rows version) drives the contraction; otherwise
+        ``delta_in`` is ΔY(via→u) and every other input is a cached message.
+
+        With ``via=None`` the bag goes sparse or dense by the rows of the
+        relation's *new* version, as a full recalibration of ``q_new`` would
+        route it.  (The reference decides on the delta's own row count, so a
+        small delta of a large relation under ``dense_rows_threshold > 0``
+        densifies the whole relation's domain product.)
+        """
+        gamma = self.gamma_carry(q_new, u, v)
+        out_attrs = tuple(dict.fromkeys(self.jt.separator(u, v) + gamma))
+        incoming = [
+            self.message(q_new, i, u, placement)
+            for i in self.jt.neighbors(u) if i != v and i != via
+        ]
+        if via is not None:
+            return self._bag_contract(q_new, u, incoming + [delta_in], out_attrs, placement)
+        rels, preds = self._bag_rels(q_delta, u), placement.get(u, ())
+        full = self._bag_rels(q_new, u)
+        if len(full) == 1 and full[0].num_rows > self.dense_rows_threshold:
+            return self._sparse_bag(q_delta, rels[0], incoming, preds, out_attrs)
+        return self._dense_bag(q_delta, rels, incoming, preds, out_attrs)
+
+    def apply_delta(self, q: Query, delta: Delta) -> tuple[Query, DeltaStats]:
+        """Maintain this query's cached messages across a base-data update.
+
+        Returns ``(q_new, stats)``, ``q_new`` being ``q`` re-snapshotted to
+        ``delta.new_version``.  Only the n−1 messages directed away from the
+        updated bag u₀ change; they are updated as old ⊕ ΔY in u₀-outward
+        order and stored under new-version Prop-2 signatures, so a stale
+        message never serves a post-update query.  The catalog must already
+        hold the new version.  When the ring cannot absorb the delta or a σ
+        migrated between bags, nothing is maintained and ``stats.fallback``
+        is set: queries then recompute on demand.
+        """
+        stats = DeltaStats(delta_rows=delta.num_rows)
+        q_new = q.with_version(delta.relation, delta.new_version)
+        if delta.relation in q.removed or delta.relation not in self.jt.mapping:
+            return q_new, stats  # update invisible to this query's CJT
+        if q.version_of(delta.relation) != delta.old_version:
+            raise ValueError(
+                f"delta chains {delta.relation}@{delta.old_version} but the "
+                f"query snapshot is @{q.version_of(delta.relation)}"
+            )
+        if not delta.supported_by(self.ring):
+            stats.fallback = True
+            return q_new, stats
+        self.catalog.put(delta.rows, make_latest=False)
+        placement_old = self.place_predicates(q)
+        placement_new = self.place_predicates(q_new)
+        if placement_old != placement_new:
+            # a σ migrated bags: old messages had another annotation layout
+            stats.fallback = True
+            return q_new, stats
+        u0 = self.jt.mapping[delta.relation]
+        q_delta = q_new.with_version(delta.relation, delta.rows.version)
+        upward = self.jt.traversal_to_root(u0)  # (child, parent): parent is u₀-side
+        toward_u0 = {c: p for (c, p) in upward}
+        # an empty delta (compaction) is the ⊕-zero: re-key, contract nothing
+        empty = delta.num_rows == 0
+        dmsgs: dict[tuple[str, str], Factor] = {}
+        with self.store.inflight():
+            for (c, p) in reversed(upward):  # edges nearest u₀ first
+                u, v = p, c  # the changed direction points away from u₀
+                d = None
+                if not empty:
+                    via = None if u == u0 else toward_u0[u]
+                    d = self.delta_message(
+                        q_new, q_delta, u, v, placement_new,
+                        via=via, delta_in=None if via is None else dmsgs[(via, u)],
+                    )
+                    dmsgs[(u, v)] = d
+                    stats.delta_messages += 1
+                old_base = self.edge_sig(q, u, v, placement_old)
+                new_base = self.edge_sig(q_new, u, v, placement_new)
+                gamma = self.gamma_carry(q_new, u, v)
+                if self.store.apply_delta(old_base, new_base, gamma, d) is not None:
+                    stats.edges_maintained += 1
+                else:
+                    stats.edges_skipped += 1
+        return q_new, stats
 
     def is_calibrated(self, q: Query) -> bool:
         placement = self.place_predicates(q)

@@ -1,26 +1,50 @@
-"""Dashboard sessions and the shared think-time scheduler (paper §4).
+"""Declarative dashboard sessions: typed interaction events, crossfilter
+fan-out, and a shared think-time scheduler (paper §4, serving layer).
 
-This slice ports what the legacy ``Treant`` API runs on:
+The paper's Treant serves whole *dashboards* — many linked visualizations
+whose interaction queries differ incrementally from one another:
 
+- :class:`DashboardSpec` declares named vizzes (:class:`VizSpec`: measure,
+  ring, group-by, local σ) over one catalog/join graph.
+- ``Treant.open_session(spec)`` returns a :class:`Session` holding the shared
+  *crossfilter* state (one active filter per attribute, linked selection)
+  plus per-viz view state (drill path, measure, toggled relations).
+- Typed events (:class:`SetFilter`, :class:`ClearFilter`, :class:`Drill`,
+  :class:`Rollup`, :class:`SwapMeasure`, :class:`ToggleRelation`,
+  :class:`Undo`) go through :meth:`Session.apply`, which derives the per-viz
+  :class:`~repro_torch.core.query.Query` objects and fans execution out to
+  every viz whose query changed.  All vizzes share one engine per ring, one
+  :class:`~repro_torch.core.calibration.MessageStore` and plan cache, so a
+  message materialized for one viz serves its siblings.
+- **Batched fan-out**: the re-render dispatches every changed viz through
+  ``CJTEngine.execute_many`` (one engine call per ring), which absorbs the
+  siblings sharing a batch signature in one ``level_segment_aggregate``
+  launch; ``Treant(batch_fanout=False)`` dispatches viz by viz.  The device
+  is synchronized once per fan-out.
 - :class:`ThinkTimeScheduler`: a priority queue of pending calibrations
   across all (session, viz) pairs.  An interaction preempts *only* the
-  pending calibration of the viz it changed; background progress on every
-  other viz survives.  ``run`` drains the queue cheapest-remaining-work
-  first, level by level across vizzes when no budget is set.
-- :class:`Session`'s imperative bridge: ``add_viz``, ``interact_query``,
-  ``sql``, ``read`` and ``idle``.
+  pending calibration of the viz it changed; ``Session.idle`` drains the
+  queue through the session's think-time policy.
+- ``Session.sql(viz, text)`` routes the restricted SQL front-end into the
+  same layer, and the legacy ``Treant`` wrappers run on spec-less sessions.
 
-The declarative layer (``DashboardSpec``, typed events, crossfilter fan-out,
-undo, σ prefetch, bin cubes) is not ported yet.
+Query derivation contract (equal digests to hand-built chains): for each viz,
+
+    base → with_measure(swap) → with_group_by(spec γ + drills)
+         → relation toggles → with_filters(crossfilter σ, source excluded)
+
+Speculative σ prefetch and bin cubes are not ported yet (ROADMAP Queue 1
+item 14).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Mapping
 
-from .calibration import CalibrationPlan, CJTEngine, ExecStats
+from repro_torch.relational.relation import Predicate, mask_in, mask_range
+from .calibration import CalibrationPlan, CJTEngine, ExecStats, synchronize
 from .predictive import ThinkTimeBudget, ThinkTimePolicy
 from .query import Query
 
@@ -28,15 +52,155 @@ if TYPE_CHECKING:  # pragma: no cover — import cycle guard (treant imports us)
     from .treant import Treant
 
 
+# ---------------------------------------------------------------------------
+# Declarative spec
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class VizSpec:
+    """One visualization: an SPJA aggregate view over the shared join graph.
+
+    ``crossfilter=False`` opts the viz out of linked selection (it keeps its
+    local σ only and is never re-rendered by SetFilter/ClearFilter events).
+    """
+
+    name: str
+    measure: tuple[str, str] | None = None     # (relation, column)
+    ring: str = "count"
+    group_by: tuple[str, ...] = ()
+    predicates: tuple[Predicate, ...] = ()     # local σ, always applied
+    removed: tuple[str, ...] = ()              # R̄: relations excluded up front
+    crossfilter: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class DashboardSpec:
+    """A named set of linked vizzes over one catalog."""
+
+    vizzes: tuple[VizSpec, ...]
+
+    def __post_init__(self):
+        names = [v.name for v in self.vizzes]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate viz names in spec: {names}")
+
+    def viz(self, name: str) -> VizSpec:
+        for v in self.vizzes:
+            if v.name == name:
+                return v
+        raise KeyError(f"no viz {name!r} in spec")
+
+    @property
+    def names(self) -> tuple[str, ...]:
+        return tuple(v.name for v in self.vizzes)
+
+
+# ---------------------------------------------------------------------------
+# Typed interaction events
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SetFilter:
+    """Set the session-wide crossfilter on ``attr``.
+
+    Either ``values`` (IN-list) or ``lo``/``hi`` (half-open range, like
+    ``mask_range``).  ``source`` names the viz that originated the brush: it
+    keeps showing its own unfiltered dimension, so the filter applies to
+    every *other* crossfilter viz.
+    """
+
+    attr: str
+    values: tuple[int, ...] = ()
+    lo: int | None = None
+    hi: int | None = None
+    source: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ClearFilter:
+    attr: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Drill:
+    """Add ``attr`` to one viz's group-by (drill-down)."""
+
+    viz: str
+    attr: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Rollup:
+    """Remove ``attr`` (default: the most recent γ attr) from one viz."""
+
+    viz: str
+    attr: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SwapMeasure:
+    viz: str
+    relation: str
+    column: str
+    ring: str = "sum"
+
+
+@dataclasses.dataclass(frozen=True)
+class ToggleRelation:
+    """Flip a relation in/out of the join (R̄); all vizzes unless ``viz``."""
+
+    relation: str
+    viz: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Undo:
+    """Revert the last ``Session.apply`` event (declarative state only)."""
+
+
+Event = (SetFilter, ClearFilter, Drill, Rollup, SwapMeasure, ToggleRelation, Undo)
+
+
+def _group_by_engine(pairs):
+    """Group ``(engine, item)`` pairs into ``[(engine, [items…])]`` in
+    first-appearance order (engines hash by identity)."""
+    groups: dict[CJTEngine, list] = {}
+    for eng, item in pairs:
+        groups.setdefault(eng, []).append(item)
+    return list(groups.items())
+
+
+# ---------------------------------------------------------------------------
+# Results
+# ---------------------------------------------------------------------------
+
 @dataclasses.dataclass
 class InteractionResult:
     """One viz's rendered aggregate plus execution accounting.
-    ``latency_s`` covers dispatch and the device sync of this viz."""
+
+    ``latency_s`` is dispatch time for this viz; under batched fan-out the
+    sibling group shares one dispatch, so grouped vizzes report the same
+    value, and the device sync happens once for all vizzes (see
+    ``ApplyResult.latency_s``).  ``steiner_size`` is realized from the
+    engine's ExecStats (bags touched by recomputation ∪ root).
+    """
 
     factor: object
     stats: ExecStats
     latency_s: float
     steiner_size: int
+
+
+@dataclasses.dataclass
+class ApplyResult:
+    """Outcome of one ``Session.apply``: which vizzes re-rendered and how.
+    ``latency_s`` covers the whole fan-out, ending in one device sync."""
+
+    event: object
+    affected: tuple[str, ...]
+    results: dict[str, InteractionResult]
+    queries: dict[str, Query]
+    latency_s: float
 
 
 # ---------------------------------------------------------------------------
@@ -53,6 +217,9 @@ class _CalTask:
     priority: int
     plan: CalibrationPlan | None = None
     done: int = 0
+    # lowest-priority tier: compaction-triggered recalibrations run only
+    # when no interactive think-time work is pending
+    deprioritized: bool = False
 
 
 class ThinkTimeScheduler:
@@ -60,41 +227,58 @@ class ThinkTimeScheduler:
 
     Priority is cost-weighted: the task with the cheapest estimated
     remaining work runs first, with recency (most recently interacted) as the
-    tie-break.  ``schedule`` replaces a pending task only when the query for
-    that exact (session, viz) changed — the *only* preemption.  Exhausting a
-    ``run`` budget parks the current task without losing position (§4.2.1).
+    tie-break; deprioritized (compaction) tasks form a strictly lower tier.
+    ``schedule`` replaces a pending task only when the query for that exact
+    (session, viz) changed — the *only* preemption.  Exhausting a ``run``
+    budget parks the current task without losing position (§4.2.1).
     """
 
     def __init__(self):
         self._tasks: dict[tuple[str, str], _CalTask] = {}
         self._seq = 0
         self.preemptions = 0     # unfinished tasks replaced by a new query
-        self.invalidations = 0   # tasks dropped
+        self.invalidations = 0   # tasks dropped by close / clear
         self.completed = 0       # tasks fully calibrated
         self.messages = 0        # edges processed across all runs
+        self._session_preemptions: dict[str, int] = {}
 
-    def schedule(self, session: str, viz: str, query: Query, engine: CJTEngine) -> None:
+    def schedule(self, session: str, viz: str, query: Query, engine: CJTEngine,
+                 deprioritized: bool = False) -> None:
         key = (session, viz)
         self._seq += 1
         t = self._tasks.get(key)
         if t is not None:
             if t.digest == query.digest:
                 t.priority = self._seq  # refresh recency, keep progress
+                t.deprioritized = deprioritized
                 return
             self.preemptions += 1
-        self._tasks[key] = _CalTask(session, viz, query.digest, query, engine, priority=self._seq)
+            self._session_preemptions[session] = self._session_preemptions.get(session, 0) + 1
+        self._tasks[key] = _CalTask(session, viz, query.digest, query, engine,
+                                    priority=self._seq, deprioritized=deprioritized)
 
     def pending(self, session: str | None = None) -> int:
         if session is None:
             return len(self._tasks)
         return sum(1 for t in self._tasks.values() if t.session == session)
 
+    def session_preemptions(self, session: str) -> int:
+        return self._session_preemptions.get(session, 0)
+
     def drop(self, session: str, viz: str | None = None) -> int:
         keys = [k for k in self._tasks if k[0] == session and (viz is None or k[1] == viz)]
         for k in keys:
             del self._tasks[k]
         self.invalidations += len(keys)
+        if viz is None:  # whole session gone: a reopened name starts fresh
+            self._session_preemptions.pop(session, None)
         return len(keys)
+
+    def clear(self) -> int:
+        n = len(self._tasks)
+        self._tasks.clear()
+        self.invalidations += n
+        return n
 
     def _remaining_cost(self, t: _CalTask) -> float:
         """Σ of ``estimate_edge_cost`` over all directed edges (cached edges
@@ -104,7 +288,7 @@ class ThinkTimeScheduler:
         return sum(eng.estimate_edge_cost(q, u, v, placement) for u, v in eng.jt.directed_edges())
 
     def _pick(self, cands: list[_CalTask]) -> _CalTask:
-        return min(cands, key=lambda t: (self._remaining_cost(t), -t.priority))
+        return min(cands, key=lambda t: (t.deprioritized, self._remaining_cost(t), -t.priority))
 
     def run(self, budget_messages: int | None = None, budget_seconds: float | None = None,
             session: str | None = None, viz: str | None = None) -> int:
@@ -184,24 +368,63 @@ class ThinkTimeScheduler:
 
 @dataclasses.dataclass
 class _VizView:
+    spec: VizSpec | None
     base: Query
     group_by: tuple[str, ...]
+    measure: tuple[str, str, str] | None = None   # (relation, column, ring)
+    toggled: frozenset[str] = frozenset()
+    crossfilter: bool = True
 
 
 class Session:
     """One user's live dashboard over a shared Treant.
 
-    Executes through the Treant's shared engines/store so sessions and
-    sibling vizzes reuse each other's materialized messages.
+    Holds the crossfilter state and per-viz view state; derives each viz's
+    Query on demand (see the module docstring for the derivation contract)
+    and executes through the Treant's shared engines and store, so sessions
+    and sibling vizzes reuse each other's materialized messages.
     """
 
-    def __init__(self, treant: "Treant", session_id: str):
+    def __init__(self, treant: "Treant", session_id: str,
+                 spec: DashboardSpec | None = None, calibrate: bool = True):
         self._treant = treant
         self.id = session_id
+        self.spec = spec
         self._views: dict[str, _VizView] = {}
         self._current: dict[str, Query] = {}
+        # attr -> (Predicate, source viz or None)
+        self._filters: dict[str, tuple[Predicate, str | None]] = {}
+        self._undo: list[tuple] = []
+        self.undo_depth = 64
+        self.events_applied = 0
+        self._derive_memo: dict[tuple, dict[str, Query]] = {}
+        # session-default think-time policy; None falls back to the Treant's
         self.policy: ThinkTimePolicy | None = None
+        # offline-calibration pins, keyed by pin-time digest: the *effective*
+        # (union-carry) queries are pinned, not the per-viz bases —
+        # close()/update() release exactly these
+        self._pinned_queries: dict[str, Query] = {}
+        if spec is not None:
+            for v in spec.vizzes:
+                base = Query.make(
+                    treant.catalog, ring=v.ring, measure=v.measure, group_by=v.group_by,
+                    predicates=v.predicates, removed=v.removed,
+                )
+                self._views[v.name] = _VizView(spec=v, base=base, group_by=tuple(v.group_by),
+                                               crossfilter=v.crossfilter)
+                self._current[v.name] = base
+            if calibrate:  # offline stage: pin the base CJTs (§4.1.1)
+                # one calibrate_many per engine: sibling vizzes fuse into
+                # union-carry passes and levels batch across the fan-out
+                bases = [self._views[v.name].base for v in spec.vizzes]
+                for eng, qs in _group_by_engine(
+                    (treant.engine_for(b.ring_name, b.measure), b) for b in bases
+                ):
+                    _, effective = eng.calibrate_many(qs, pin=True)
+                    for q in effective:
+                        self._pinned_queries[q.digest] = q
 
+    # -- plumbing -------------------------------------------------------------
     @property
     def catalog(self):
         return self._treant.catalog
@@ -220,11 +443,13 @@ class Session:
         except KeyError:
             raise KeyError(f"no viz {viz!r} in session {self.id!r}") from None
 
-    def add_viz(self, name: str, base: Query) -> None:
-        """Attach a viz from an explicit base query."""
+    def add_viz(self, name: str, base: Query, crossfilter: bool = True,
+                spec: VizSpec | None = None) -> None:
+        """Attach a viz from an explicit base query (legacy bridge)."""
         if name in self._views:
             return
-        self._views[name] = _VizView(base=base, group_by=tuple(base.group_by))
+        self._views[name] = _VizView(spec=spec, base=base, group_by=tuple(base.group_by),
+                                     crossfilter=crossfilter)
         self._current[name] = base
 
     def query_of(self, viz: str) -> Query:
@@ -236,6 +461,174 @@ class Session:
     def vizzes(self) -> tuple[str, ...]:
         return tuple(sorted(self._views))
 
+    # -- query derivation ------------------------------------------------------
+    def derive(self, viz: str) -> Query:
+        v = self._view(viz)
+        q = v.base
+        if v.measure is not None:
+            rel, col, ring = v.measure
+            q = q.with_measure(rel, col, ring=ring)
+        q = q.with_group_by(*v.group_by)
+        # toggles BEFORE filters: the visibility check below needs the viz's
+        # effective removal set
+        for rel in sorted(v.toggled):
+            q = q.with_relation_toggled(rel)
+        if v.crossfilter:
+            # the brushing viz keeps its full dimension (source exclusion); a
+            # σ on a dimension no relation in the viz's join scope carries is
+            # dropped (it is unplaceable)
+            q = q.with_filters([
+                pred for _attr, (pred, source) in sorted(self._filters.items())
+                if source != viz and self._treant.sees_attr(q, pred.attr)
+            ])
+        return q
+
+    def _predicate_of(self, ev: SetFilter) -> Predicate:
+        doms = self.catalog.domains()
+        if ev.attr not in doms:
+            raise KeyError(f"filter attr {ev.attr!r} not in catalog")
+        if ev.values:
+            return mask_in(doms[ev.attr], list(ev.values), attr=ev.attr)
+        if ev.lo is None or ev.hi is None:
+            raise ValueError("SetFilter needs values or a [lo, hi) range")
+        return mask_range(doms[ev.attr], ev.lo, ev.hi, attr=ev.attr)
+
+    # -- event application ------------------------------------------------------
+    def apply(self, event) -> ApplyResult:
+        """Apply one typed event: update state, derive queries, fan out.
+
+        Only vizzes whose derived query digest changed are re-executed; each
+        one's pending background calibration is preempted and re-scheduled
+        for the new query (no other viz's progress is touched).
+        """
+        if not self._record(event):
+            return ApplyResult(event, (), {}, dict(self._current), 0.0)
+        return self._fan_out(event)
+
+    def _record(self, event) -> bool:
+        """Validate and apply one event to the declarative state without
+        executing anything; False when nothing changed (empty-stack Undo)."""
+        if not isinstance(event, Event):
+            raise TypeError(f"not a dashboard event: {event!r}")
+        snapshot = self._snapshot()
+        if isinstance(event, Undo):
+            if not self._undo:
+                return False
+            self._restore(self._undo.pop())
+        else:
+            self._mutate(event)
+            self._undo.append(snapshot)
+            del self._undo[: -self.undo_depth]
+        self.events_applied += 1
+        return True
+
+    def _derive_token(self) -> tuple:
+        """Content token of everything :meth:`derive` reads; ``base.digest``
+        folds in relation versions, so ingestion invalidates by re-keying."""
+        return (
+            tuple((a, p.digest, s) for a, (p, s) in sorted(self._filters.items())),
+            tuple(
+                (n, v.base.digest, v.measure, v.group_by, tuple(sorted(v.toggled)),
+                 v.crossfilter)
+                for n, v in sorted(self._views.items())
+            ),
+        )
+
+    def _derived_affected(self) -> tuple[dict[str, Query], tuple[str, ...]]:
+        """Re-derive every viz (memoized on the declarative-state token) and
+        name the ones whose digest changed."""
+        token = self._derive_token()
+        derived = self._derive_memo.get(token)
+        if derived is None:
+            derived = {name: self.derive(name) for name in sorted(self._views)}
+            if len(self._derive_memo) > 512:
+                self._derive_memo.clear()
+            self._derive_memo[token] = derived
+        affected = tuple(
+            name for name, q in derived.items() if q.digest != self._current[name].digest
+        )
+        return dict(derived), affected
+
+    def _mutate(self, event) -> None:
+        if isinstance(event, SetFilter):
+            if event.source is not None:
+                self._view(event.source)
+            self._filters[event.attr] = (self._predicate_of(event), event.source)
+        elif isinstance(event, ClearFilter):
+            self._filters.pop(event.attr, None)
+        elif isinstance(event, Drill):
+            v = self._view(event.viz)
+            if event.attr not in self.catalog.domains():
+                raise KeyError(f"drill attr {event.attr!r} not in catalog")
+            v.group_by = tuple(dict.fromkeys(v.group_by + (event.attr,)))
+        elif isinstance(event, Rollup):
+            v = self._view(event.viz)
+            if event.attr is None:
+                v.group_by = v.group_by[:-1]
+            else:
+                v.group_by = tuple(a for a in v.group_by if a != event.attr)
+        elif isinstance(event, SwapMeasure):
+            v = self._view(event.viz)
+            v.measure = (event.relation, event.column, event.ring)
+        elif isinstance(event, ToggleRelation):
+            targets = [event.viz] if event.viz is not None else list(self._views)
+            for name in targets:
+                v = self._view(name)
+                v.toggled = v.toggled ^ {event.relation}
+
+    def _fan_out(self, event) -> ApplyResult:
+        derived, affected = self._derived_affected()
+        results: dict[str, InteractionResult] = {}
+        pending = []
+        t0 = time.perf_counter()
+        # one execute_many per engine with batch_fanout (sibling absorptions
+        # share a launch), else one execute per viz; the device syncs once
+        for engine, names in _group_by_engine(
+            (self._treant.engine_for(derived[n].ring_name, derived[n].measure), n)
+            for n in affected
+        ):
+            td = time.perf_counter()
+            if self._treant.batch_fanout and len(names) > 1:
+                group = engine.execute_many(
+                    [derived[n] for n in names], sync=False,
+                    tags=[f"{self.id}:{n}" for n in names],
+                )
+            else:
+                group = []
+                for name in names:
+                    self.store.tag = f"{self.id}:{name}"
+                    try:
+                        group.append(engine.execute(derived[name], sync=False))
+                    finally:
+                        self.store.tag = None
+            dt = time.perf_counter() - td
+            for name, (factor, stats) in zip(names, group):
+                q = derived[name]
+                results[name] = InteractionResult(factor, stats, dt, stats.steiner_size)
+                self._current[name] = q
+                pending.append(factor.field)
+                self.scheduler.schedule(self.id, name, q, engine)
+        synchronize(pending)
+        return ApplyResult(event, affected, results, derived, time.perf_counter() - t0)
+
+    # -- undo state ------------------------------------------------------------
+    def _snapshot(self):
+        # declarative state only: _current stays untouched on restore so the
+        # fan-out sees the re-derived queries as changed and re-renders them
+        return (
+            dict(self._filters),
+            {n: (v.group_by, v.measure, v.toggled) for n, v in self._views.items()},
+        )
+
+    def _restore(self, snap) -> None:
+        filters, views = snap
+        self._filters = dict(filters)
+        for n, (gb, meas, tog) in views.items():
+            if n in self._views:
+                v = self._views[n]
+                v.group_by, v.measure, v.toggled = gb, meas, tog
+
+    # -- imperative bridges ----------------------------------------------------
     def _execute(self, viz: str, query: Query) -> tuple[object, ExecStats, CJTEngine, float]:
         engine = self._treant.engine_for(query.ring_name, query.measure)
         self.store.tag = f"{self.id}:{viz}"
@@ -247,8 +640,12 @@ class Session:
         return factor, stats, engine, time.perf_counter() - t0
 
     def interact_query(self, viz: str, query: Query) -> InteractionResult:
-        """Execute an explicit Query as this viz's current view; the viz's
-        pending calibration is preempted iff the query changed."""
+        """Execute an explicit Query as this viz's current view.
+
+        Legacy/SQL escape hatch: bypasses the declarative state (Undo does
+        not cover it) but shares the store, plans and scheduler — the viz's
+        pending calibration is preempted iff the query changed.
+        """
         self._view(viz)
         factor, stats, engine, dt = self._execute(viz, query)
         self._current[viz] = query
@@ -266,11 +663,47 @@ class Session:
         factor, stats, _, dt = self._execute(viz, self.query_of(viz))
         return InteractionResult(factor, stats, dt, stats.steiner_size)
 
+    # -- think time ------------------------------------------------------------
     def idle(self, budget_messages: int | None = None, budget_seconds: float | None = None,
              policy: ThinkTimePolicy | None = None) -> int:
         """Spend user think-time on this session, driven by ONE policy
-        (``policy``, else ``self.policy``, else the Treant's default).
-        Returns the number of calibration edges processed."""
+        (``policy``, else ``self.policy``, else the Treant's default), which
+        drains pending calibrations (preemptible: exhausting the budget keeps
+        iterator positions and all materialized messages).  Returns the
+        number of calibration edges processed."""
         if policy is None:
             policy = self.policy or self._treant.think_time_policy
         return policy.run(self, ThinkTimeBudget(messages=budget_messages, seconds=budget_seconds))
+
+    # -- filters / introspection ----------------------------------------------
+    @property
+    def filters(self) -> Mapping[str, Predicate]:
+        return {a: p for a, (p, _) in self._filters.items()}
+
+    def stats(self) -> dict:
+        """Per-session scheduler counters plus the shared store/scheduler
+        totals (``*_total``: sessions share one store and one scheduler)."""
+        return {
+            "vizzes": len(self._views),
+            "events": self.events_applied,
+            "pending_calibrations": self.scheduler.pending(self.id),
+            "preemptions": self.scheduler.session_preemptions(self.id),
+            "scheduler_messages_total": self.scheduler.messages,
+            "cross_viz_hits_total": self.store.cross_tag_hits,
+            "undo_depth": len(self._undo),
+        }
+
+    def close(self) -> None:
+        """Tear the session down without leaking store state.
+
+        Drops pending calibrations, *unpins* every base CJT pinned at open,
+        and evicts the unpinned messages this session's interactions produced
+        (producer tags ``"{sid}:*"``).  Untagged offline-calibration messages
+        stay cached for other sessions.
+        """
+        self.scheduler.drop(self.id)
+        for q in self._pinned_queries.values():
+            self._treant.engine_for(q.ring_name, q.measure).unpin_query(q)
+        self._pinned_queries.clear()
+        self.store.drop_producer(f"{self.id}:")
+        self._treant._sessions.pop(self.id, None)

@@ -16,7 +16,8 @@ plan.  PyTorch runs eagerly, so nothing is traced or compiled here.
   kernel op (``kernel_segment_op``), whose fields are float32 and whose
   leaves have no trailing dims goes to ``segment_ops.aggregate_op`` (one
   message) or ``segment_ops.level_aggregate`` (one launch for a whole
-  calibration level).  MOMENTS stacks its three leaves as value columns.
+  calibration level, or for one batch of sibling absorptions in a
+  crossfilter fan-out, ``run_sparse_batch``).  MOMENTS stacks its three leaves as value columns.
   On a CUDA device those launch the hand-written kernels, always — there is
   no cost gate; on the CPU the same wrappers run their plain versions.
   BOOL, int64 COUNT and covariance reduce with plain torch on both devices.
@@ -92,6 +93,10 @@ class PlanStats:
     plan_hits: int = 0       # executions served by a cached plan
     kernel_execs: int = 0    # executions whose ⊕-reduction takes the kernel route
     fallback_execs: int = 0  # executions reduced with plain torch
+    # batched absorption (run_sparse_batch): one level_aggregate launch each
+    batched_execs: int = 0        # batched calls dispatched
+    batched_absorptions: int = 0  # absorptions served by those calls (Σ widths)
+    batch_width: int = 0          # widest batch observed (max, not a sum)
     # level-batched calibration: groups of >1 same-structure messages inside
     # one level call, and calibration's message dispatches in total
     level_batched_execs: int = 0
@@ -102,9 +107,13 @@ class PlanStats:
     # ⊕-reduced by ONE level_aggregate call
     fused_level_launches: int = 0
     fused_level_messages: int = 0
+    # cross-session batched fan-out: batched calls whose members span >1
+    # session, and the widest distinct-session count observed
+    cross_session_execs: int = 0
+    cross_session_width: int = 0
 
     # counters that are high-water marks, not sums
-    MAX_FIELDS = ("level_batch_width",)
+    MAX_FIELDS = ("batch_width", "level_batch_width", "cross_session_width")
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -275,6 +284,13 @@ class _GroupSpec:
     pred_attrs: tuple
     inverse: dict          # canonical position → caller position
     key: tuple             # version-free plan key
+
+    @property
+    def statics(self) -> tuple:
+        """The group's entry of ``_level_plan_parts``' ``group_statics``."""
+        rel = self.items[0].rel
+        return (rel.attrs, self.doms, self.in_canon, self.pred_attrs, self.out_canon,
+                rel.row_bucket, self.member_dims)
 
 
 def _canon_absorption(item: AbsorbItem) -> tuple[tuple, tuple, dict[str, str]]:
@@ -580,15 +596,7 @@ class PlanCache:
         entry = self._plans.get(key)
         built = entry is None
         if built:
-            statics = tuple(
-                (
-                    specs[i].items[0].rel.attrs, specs[i].doms,
-                    specs[i].in_canon, specs[i].pred_attrs, specs[i].out_canon,
-                    specs[i].items[0].rel.row_bucket, specs[i].member_dims,
-                )
-                for i in order
-            )
-            entry = _build_level_plan(self.ring, statics)
+            entry = _build_level_plan(self.ring, tuple(specs[i].statics for i in order))
             self._plans.put(key, entry)
         outs = entry.fn(tuple(self._group_args(catalog, specs[i]) for i in order))
         if entry.uses_kernel:
@@ -615,6 +623,45 @@ class PlanCache:
             # undo the member sort: caller expects its own member order
             results[i] = [group_results[spec.inverse[o]] for o in range(width)]
         return results  # type: ignore[return-value]
+
+    def run_sparse_batch(
+        self,
+        catalog,
+        items: Sequence[AbsorbItem],
+        stats_list: Sequence | None = None,
+    ) -> list[Factor]:
+        """Execute a group of batch-compatible absorptions as one call.
+
+        Every item shares one :func:`absorb_batch_key` (the caller groups);
+        members differ only in γ-carried attrs, σ mask contents and incoming
+        factor values.  The call is the level plan of one group: every
+        kernel-route member's segment reduction goes to ONE
+        ``level_aggregate`` launch.  Results are bit-identical to
+        ``run_sparse`` per member on integer-valued data.
+        """
+        assert len(items) >= 2, "batch of one: use run_sparse"
+        spec = self._group_spec(items, stats_list)
+        entry = self._plans.get(spec.key)
+        built = entry is None
+        if built:
+            entry = _build_level_plan(self.ring, (spec.statics,))
+            self._plans.put(spec.key, entry)
+        (outs,) = entry.fn((self._group_args(catalog, spec),))
+        width = len(spec.items)
+        self.stats.batched_execs += 1
+        self.stats.batched_absorptions += width
+        self.stats.batch_width = max(self.stats.batch_width, width)
+        results = []
+        for it, f, stats in zip(spec.items, outs, spec.stats or [None] * width):
+            # rename canonical placeholders back to the member's attrs
+            results.append(Factor(it.out_attrs, f.field, self.ring))
+            self._account(entry.uses_kernel, built, stats)
+            built = False  # one plan build per batched call, not per member
+            if stats is not None:
+                stats.batched_absorptions += 1
+                stats.batch_width = max(stats.batch_width, width)
+        # undo the member sort: caller expects its own member order
+        return [results[spec.inverse[o]] for o in range(width)]
 
     def _group_spec(self, items: Sequence[AbsorbItem], stats_list: Sequence | None) -> _GroupSpec:
         """Canonicalize one batch group: sorted member order, group-max

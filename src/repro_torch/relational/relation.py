@@ -8,8 +8,17 @@ segment ⊕-aggregation.
 
 Digests (``Relation.digest``, ``Predicate.digest``) are sha1 hashes over
 host data and equal the JAX package's, so message signatures agree between
-the two packages.  Data updates (``append_rows``/``delete_rows``, ``Delta``)
-are not ported yet.
+the two packages; so do the version strings of data updates, which
+``Query.digest`` and the signatures hash.
+
+Data updates: ``Relation.append_rows`` / ``delete_rows`` produce a new
+immutable version *plus* a signed :class:`Delta` whose rows lift to the
+exact ⊕-difference between the versions.  Appends carry positive weights
+(valid in every semiring); deletes carry negated weights, sound only when
+the ring has an ⊕-inverse (``Delta.supported_by``).  Streamed deletes are
+*tombstoned* (kept at weight 0) so idempotent rings absorb them too, and
+:meth:`Relation.compact` reclaims them.  The CJT side is
+``core.calibration.CJTEngine.apply_delta``.
 """
 
 from __future__ import annotations
@@ -136,6 +145,152 @@ class Relation:
     def with_version(self, version: str, **updates) -> "Relation":
         return dataclasses.replace(self, version=version, **updates)
 
+    def filter_rows(self, row_mask: np.ndarray, version: str) -> "Relation":
+        codes = {a: c[row_mask] for a, c in self.codes.items()}
+        measures = {m: v[row_mask] for m, v in self.measures.items()}
+        w = self.weights[row_mask] if self.weights is not None else None
+        return dataclasses.replace(
+            self, codes=codes, measures=measures, weights=w, version=version
+        )
+
+    def perturb_measure(self, measure: str, scale: float, seed: int, version: str) -> "Relation":
+        """Random cell-value perturbation (paper §5.1.1 relation-update test)."""
+        rng = np.random.default_rng(seed)
+        col = self.measures[measure]
+        new = col * (1.0 + scale * rng.standard_normal(col.shape)).astype(col.dtype)
+        measures = dict(self.measures)
+        measures[measure] = new
+        return dataclasses.replace(self, measures=measures, version=version)
+
+    # -- data updates (delta calibration) ------------------------------------
+    def _materialized_weights(self) -> np.ndarray:
+        return (
+            np.asarray(self.weights, np.float32)
+            if self.weights is not None
+            else np.ones((self.num_rows,), np.float32)
+        )
+
+    @property
+    def tombstone_count(self) -> int:
+        """Rows annotated ⊕-zero (weight 0): logically deleted but physically
+        present.  Produced by the streaming path for rings without an
+        ⊕-inverse; reclaimed by :meth:`compact`."""
+        if self.weights is None:
+            return 0
+        return int(np.count_nonzero(np.asarray(self.weights, np.float32) == 0.0))
+
+    def append_rows(
+        self,
+        codes: Mapping[str, np.ndarray],
+        measures: Mapping[str, np.ndarray] | None = None,
+        weights: np.ndarray | None = None,
+        version: str | None = None,
+    ) -> tuple["Relation", "Delta | None"]:
+        """Append rows, returning ``(new_version, delta)``.
+
+        The delta's rows are exactly the appended rows, so for any semiring
+        ``lift(new) = lift(old) ⊕ lift(delta.rows)`` — appends are maintainable
+        under every ring, including MIN/MAX.  A zero-row append is a no-op:
+        it returns ``(self, None)`` without bumping the version (an empty
+        delta would otherwise dirty the n−1 outward messages for nothing).
+        """
+        measures = dict(measures or {})
+        if set(codes) != set(self.attrs):
+            raise ValueError(f"append codes {sorted(codes)} != attrs {sorted(self.attrs)}")
+        if set(measures) != set(self.measures):
+            raise ValueError("appended rows must supply every measure column")
+        new_codes = {a: np.asarray(codes[a], np.int32) for a in self.attrs}
+        n_new = new_codes[self.attrs[0]].shape[0] if self.attrs else 0
+        if n_new == 0:
+            return self, None
+        new_meas = {
+            m: np.asarray(measures[m], self.measures[m].dtype) for m in self.measures
+        }
+        w_new = (
+            np.asarray(weights, np.float32)
+            if weights is not None
+            else np.ones((n_new,), np.float32)
+        )
+        suffix = _delta_suffix(self.version, "a", new_codes, new_meas, w_new)
+        delta_rows = dataclasses.replace(
+            self, codes=new_codes, measures=new_meas, weights=w_new,
+            version=f"{self.version}Δ{suffix}",
+        )
+        new_version = version or f"{self.version}+{suffix}"
+        merged = dataclasses.replace(
+            self,
+            codes={a: np.concatenate([np.asarray(self.codes[a], np.int32), new_codes[a]])
+                   for a in self.attrs},
+            measures={m: np.concatenate([self.measures[m], new_meas[m]])
+                      for m in self.measures},
+            weights=(np.concatenate([self._materialized_weights(), w_new])
+                     if (self.weights is not None or weights is not None) else None),
+            version=new_version,
+        )
+        return merged, Delta(
+            relation=self.name, old_version=self.version, new_version=new_version,
+            rows=delta_rows, kind="append",
+        )
+
+    def delete_rows(
+        self, row_mask: np.ndarray, version: str | None = None
+    ) -> tuple["Relation", "Delta | None"]:
+        """Delete the rows selected by ``row_mask``, returning ``(new, delta)``.
+
+        The delta's rows are the deleted rows with *negated* weights — a valid
+        ⊕-inverse annotation exactly when the ring has additive inverses
+        (SUM/COUNT/MOMENTS); MIN/MAX/BOOL consumers must recompute instead
+        (``Delta.supported_by`` reports which).  An all-False mask is a no-op
+        returning ``(self, None)`` — no version bump, nothing to maintain.
+        """
+        row_mask = np.asarray(row_mask, bool)
+        if row_mask.shape != (self.num_rows,):
+            raise ValueError(f"mask shape {row_mask.shape} != ({self.num_rows},)")
+        if not row_mask.any():
+            return self, None
+        gone_codes = {a: np.asarray(c, np.int32)[row_mask] for a, c in self.codes.items()}
+        gone_meas = {m: v[row_mask] for m, v in self.measures.items()}
+        gone_w = -self._materialized_weights()[row_mask]
+        suffix = _delta_suffix(self.version, "d", gone_codes, gone_meas, gone_w)
+        delta_rows = dataclasses.replace(
+            self, codes=gone_codes, measures=gone_meas, weights=gone_w,
+            version=f"{self.version}Δ{suffix}",
+        )
+        new_version = version or f"{self.version}+{suffix}"
+        kept = self.filter_rows(~row_mask, new_version)
+        return kept, Delta(
+            relation=self.name, old_version=self.version, new_version=new_version,
+            rows=delta_rows, kind="delete",
+        )
+
+    def compact(self, version: str | None = None) -> tuple["Relation", "Delta | None"]:
+        """Physically drop tombstoned (weight-0) rows, returning ``(new, delta)``.
+
+        The compaction delta is *empty* — tombstones lift to the exact ⊕-zero
+        under every group ring, so dropping them leaves each cached message
+        value-identical and ``apply_delta`` merely re-keys the n−1 outward
+        messages to the new version (zero contractions).  Rings whose lift
+        ignores weights (MIN/MAX/BOOL) report unsupported instead
+        (``Delta.supported_by`` → False): for them compaction is the point
+        where the tombstoned deletes become visible, and the one real
+        recalibration happens.  Returns ``(self, None)`` when there is
+        nothing to reclaim.
+        """
+        if self.weights is None:
+            return self, None
+        keep = np.asarray(self.weights, np.float32) != 0.0
+        if keep.all():
+            return self, None
+        suffix = _delta_suffix(self.version, "c", {}, {}, ~keep)
+        new_version = version or f"{self.version}+{suffix}"
+        kept = self.filter_rows(keep, new_version)
+        empty = self.filter_rows(np.zeros((self.num_rows,), bool),
+                                 f"{self.version}Δ{suffix}")
+        return kept, Delta(
+            relation=self.name, old_version=self.version, new_version=new_version,
+            rows=empty, kind="compact",
+        )
+
     @property
     def row_bucket(self) -> int:
         """Padded row count for shape-stable plan keys (see :func:`row_bucket`)."""
@@ -159,6 +314,70 @@ class Relation:
         shape = tuple(self.domains[a] for a in self.attrs)
         field = sr.field_map(lambda leaf: leaf.reshape(shape + tuple(leaf.shape[1:])), field)
         return Factor(tuple(self.attrs), field, ring)
+
+
+def _delta_suffix(old_version: str, tag: str, codes, measures, weights) -> str:
+    """Deterministic content-addressed suffix for one delta.
+
+    Callers build the delta-rows version as ``{old}Δ{suffix}`` and the new
+    relation version as ``{old}+{suffix}`` from the *same* suffix — deriving
+    one from the other by splitting on ``Δ`` broke for caller-supplied
+    versions that themselves contained a ``Δ`` (the split found the caller's
+    delimiter first and grafted garbage into the new version).
+    """
+    h = hashlib.sha1()
+    h.update(old_version.encode())
+    h.update(tag.encode())
+    for a in sorted(codes):
+        h.update(codes[a].tobytes())
+    for m in sorted(measures):
+        h.update(np.ascontiguousarray(measures[m]).tobytes())
+    if weights is not None:
+        h.update(np.ascontiguousarray(weights).tobytes())
+    return f"{tag}{h.hexdigest()[:10]}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Delta:
+    """A signed change taking ``relation`` from ``old_version`` to ``new_version``.
+
+    ``rows`` is itself a :class:`Relation` (same schema) whose lift is the
+    ⊕-difference between the two versions; its ``weights`` carry the sign.
+    Deltas chain: applying them in sequence walks the version history.
+
+    ``tombstoned`` marks stream-coalesced deltas whose deletes were retained
+    as weight-0 rows in the new version rather than physically removed.  A
+    ``"compact"`` delta (empty rows) records a tombstone-reclaiming version
+    bump: the ⊕-difference is zero for group rings, so maintenance re-keys
+    messages without contracting anything.
+    """
+
+    relation: str
+    old_version: str
+    new_version: str
+    rows: Relation
+    kind: str  # "append" | "delete" | "mixed" | "compact"
+    tombstoned: bool = False
+
+    @property
+    def num_rows(self) -> int:
+        return self.rows.num_rows
+
+    def supported_by(self, ring: sr.Semiring) -> bool:
+        """Can cached ⊕-state absorb this delta, or must consumers recompute?
+
+        Appends always can (⊕ over a union).  Group rings absorb anything —
+        deletes ride negated weights, compactions are ⊕-zero.  Idempotent
+        rings (MIN/MAX/BOOL) additionally absorb *tombstoned* deltas: their
+        lifts ignore weights, so the delta re-contributes values the cached
+        messages already contain, and a ⊕ a = a keeps them correct for
+        tombstone semantics (deletes invisible until compaction).
+        """
+        if self.kind == "append":
+            return True
+        if ring.has_add_inverse:
+            return True
+        return self.tombstoned and ring.idempotent_add
 
 
 def lift_rows(rel: Relation, ring: sr.Semiring, measure: str | None = None,

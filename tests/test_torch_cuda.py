@@ -341,3 +341,103 @@ def test_cuda_split_contract_on_two_streams_at_once_is_exact(cuda, shape, kernel
     for pair, got in zip(pairs, outs):
         want = plain(*pair)
         assert all(torch.equal(x, want) for x in got)
+
+
+# ---------------------------------------------------------------------------
+# live dashboards: batched fan-out, a flush tick, a dense-bag update
+# ---------------------------------------------------------------------------
+
+def _live_spec():
+    from repro_torch.core import DashboardSpec, VizSpec
+
+    amount = ("Opp", "amount")
+    return DashboardSpec(vizzes=tuple(
+        VizSpec(f"by_{g}", measure=amount, ring="sum", group_by=(g,))
+        for g in ("stage", "state", "camp_type", "title")
+    ) + (VizSpec("max_by_stage", measure=amount, ring="tropical_max", group_by=("stage",)),))
+
+
+def _small_salesforce():
+    return schema.salesforce(n_opp=20_000, n_user=500, n_camp=100, n_acc=200)
+
+
+def test_cuda_batched_fanout_matches_cpu_one_level_launch_per_group(cuda):
+    from repro_torch.core import SetFilter
+
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        t = Treant(_small_salesforce(), ring=sr.SUM, device=dev)
+        sess = t.open_session(_live_spec(), name="s")
+        ops.reset_launches()
+        before = t.engine.plans.stats.batched_execs
+        res = sess.apply(SetFilter("state", values=(0, 1, 2, 3, 4), source="by_state"))
+        runs[dev] = (res, ops.LAUNCHES["level_segment_aggregate"],
+                     t.engine.plans.stats.batched_execs - before)
+    (cres, _, cgroups), (gres, glaunches, ggroups) = runs["cpu"], runs["cuda"]
+    assert ggroups == cgroups >= 1
+    assert glaunches == ggroups
+    assert gres.affected == cres.affected
+    for viz in gres.affected:
+        g, c = gres.results[viz], cres.results[viz]
+        assert (g.stats.messages_computed, g.stats.batch_width) == (
+            c.stats.messages_computed, c.stats.batch_width)
+        torch.testing.assert_close(g.factor.field.cpu(), c.factor.field, rtol=1e-5, atol=0)
+
+
+def test_cuda_flush_tick_matches_cpu(cuda):
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        cat = _small_salesforce()
+        t = Treant(cat, ring=sr.SUM, device=dev, compaction_threshold=0.0)
+        sess = t.open_session(_live_spec(), name="s")
+        rng = np.random.default_rng(5)
+        buf = t.stream("Opp")
+        opp = cat.get("Opp")
+        for _ in range(4):
+            buf.append({a: rng.integers(0, opp.domains[a], 500) for a in opp.attrs},
+                       measures={"amount": rng.gamma(2.0, 5000.0, 500).astype(np.float32)})
+        mask = np.zeros(opp.num_rows + buf.pending_appends, bool)
+        mask[rng.choice(opp.num_rows, 20, replace=False)] = True
+        buf.delete(mask)
+        ops.reset_launches()
+        res = t.flush()
+        launches = ops.LAUNCHES["segment_aggregate"]
+        reads = {v: sess.read(v) for v in sess.vizzes}
+        runs[dev] = (res, launches, reads, t.catalog.watermark)
+    (cres, _, creads, cwm), (gres, glaunches, greads, gwm) = runs["cpu"], runs["cuda"]
+    assert glaunches > 0 and gwm == cwm
+    assert [(u.queries_maintained, u.queries_fallback) for u in gres.updates] == [
+        (u.queries_maintained, u.queries_fallback) for u in cres.updates]
+    for viz, g in greads.items():
+        c = creads[viz]
+        assert g.stats.messages_computed == c.stats.messages_computed == 0
+        if viz == "max_by_stage":
+            assert torch.equal(g.factor.field.cpu(), c.factor.field)
+        else:
+            torch.testing.assert_close(g.factor.field.cpu(), c.factor.field, rtol=1e-5, atol=0)
+
+
+def test_cuda_dense_role_update_launches_semiring_contract_and_matches_cpu(cuda):
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        cat = _small_salesforce()
+        t = Treant(cat, ring=sr.SUM, device=dev, dense_rows_threshold=1_000)
+        sess = t.open_session(_live_spec(), name="s")
+        role = cat.get("Role")
+        rng = np.random.default_rng(3)
+        new_rel, delta = role.append_rows(
+            {a: rng.integers(0, role.domains[a], 4) for a in role.attrs})
+        sc_ops.reset_launches()
+        res = t.update(new_rel, delta)
+        launches = sc_ops.LAUNCHES["semiring_contract"]
+        runs[dev] = (res, launches, {v: sess.read(v) for v in sess.vizzes})
+    (cres, clx, creads), (gres, glx, greads) = runs["cpu"], runs["cuda"]
+    assert clx == 0 and glx > 0
+    assert gres.queries_fallback == cres.queries_fallback == 0
+    for viz, g in greads.items():
+        c = creads[viz]
+        assert g.stats.messages_computed == c.stats.messages_computed
+        if viz == "max_by_stage":
+            assert torch.equal(g.factor.field.cpu(), c.factor.field)
+        else:
+            torch.testing.assert_close(g.factor.field.cpu(), c.factor.field, rtol=1e-5, atol=0)
