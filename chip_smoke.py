@@ -72,7 +72,40 @@ CUDA toolkit.  Phases:
     sums, exact for MIN/MAX), and the whole sequence at x5 (1M
     opportunities) must give the same counts and answers on cuda and on the
     CPU.  Launch counts of the two phases join the kernel records
-    (``launches_session``, ``launches_ingest``).
+    (``launches_session``, ``launches_ingest``);
+12. exploration phase: ``schema.flight(n_flights=7_400_000)`` (a year of US
+    domestic flights, Flights row bucket 2^23), ``benchmarks/bench_explore.py``'s
+    eight vizzes, two context filters and, per brush dimension, an anchor,
+    a 3-value jump and a ClearFilter, ``idle()`` after every event, on two
+    Treants: leg A with ``FixedKPrefetch(2)``, leg B with
+    ``PredictiveThinkTime(16, 2)``, one warm pass then two timed passes in
+    turns.  Per event: fan-out latency (synced), prefetch and cube hits,
+    plan executions, store probes; per ``idle()``: think time, cube builds,
+    ``bin_cube_bytes`` and the peak device memory of each build.  Every
+    timed leg-B event must be cube-served with no plan execution and no
+    store probe; timed answers equal cold engines on the card.  The warm
+    pass runs once more at full size with every segment-kernel launch held
+    against its plain version on the same tensors (float sums to a relative
+    max(1e-5, 4·√n·2^-24) for a segment of n rows), and a
+    level-plan call must have split its launch in two or more (the operands
+    past ``plans.ROWWISE_MAX_ELEMS``).  The warm pass at 300,000 flights
+    gives the same counters and answers on cuda and on the CPU;
+13. serving phase, on the same catalog: ``benchmarks/bench_serve.py``'s
+    drag storm through ``TreantServer`` — 64 sessions over ``serve_spec()``
+    (7 COUNT-valued vizzes, brush on airport_state, 8 hot windows, 3 drag
+    positions, 2 warm and 4 timed rounds, ``step()`` until the queue drains,
+    ``idle()`` between rounds), then 64 sessions over the four spec
+    variants, then the shared storm under a store budget of the pinned floor
+    plus half the evictable bytes.  Prints events/s, p99 applied-event
+    latency (the synced time of the ``step()`` that applied the event), the
+    cross-session batch width, coalesced events, kernel-2 launches per
+    ``step()`` and the store against budget and floor.  Every read must
+    equal a serial ``Session.apply`` of every submitted event on a twin
+    Treant (bit for bit), the budget must hold, the shared storm once more
+    with every segment-kernel launch held bit for bit against its plain
+    version must give the same reads, and the storm at
+    300,000 flights and 16 sessions must equal the CPU.  Launch counts join
+    the kernel records (``launches_explore``, ``launches_serve``).
 
 Two times go with every kernel: ``ms``, wrapper calls back to back between
 CUDA events (what the main path pays, host cost included), and
@@ -1443,6 +1476,722 @@ def live_phase(torch, np, K, L, schema, report: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 12: exploration with think-time (bin cubes against σ prefetch)
+# ---------------------------------------------------------------------------
+
+# one year of US domestic flights at the size of BTS's On-Time Performance
+# table (about 7.4M flights in 2019), with the generator's own 400 airports,
+# 30 carriers and 365 dates: the Flights row bucket is 2^23
+EXPLORE_FLIGHTS = 7_400_000
+EXPLORE_CPU_FLIGHTS = 300_000
+# (brush dimension, source viz), as benchmarks/bench_explore.py drives them
+BRUSH_DIMS = (("carrier_group", "by_carrier"), ("delay_bucket", "by_delay"),
+              ("month", "by_month"))
+EXPLORE_ROUNDS = 2                 # timed passes per leg, after one warm pass
+
+
+def explore_spec(L):
+    """``benchmarks/bench_explore.py``'s spec: 8 vizzes, SUM of dep_delay."""
+    m = ("Flights", "dep_delay")
+    V = L.VizSpec
+    return L.DashboardSpec(vizzes=(
+        V("by_state", measure=m, ring="sum", group_by=("airport_state",)),
+        V("by_size", measure=m, ring="sum", group_by=("airport_size",)),
+        V("by_carrier", measure=m, ring="sum", group_by=("carrier_group",)),
+        V("by_delay", measure=m, ring="sum", group_by=("delay_bucket",)),
+        V("by_month", measure=m, ring="sum", group_by=("month",)),
+        V("by_dow", measure=m, ring="sum", group_by=("dow",)),
+        V("state_by_size", measure=m, ring="sum", group_by=("airport_state", "airport_size")),
+        V("carrier_by_month", measure=m, ring="sum", group_by=("carrier_group", "month")),
+    ))
+
+
+def explore_context(L) -> list:
+    """The held analysis context: two standing filters on other dimensions."""
+    return [L.SetFilter("airport_size", values=(1, 2), source="by_size"),
+            L.SetFilter("dow", lo=0, hi=4, source="by_dow")]
+
+
+def explore_events(L, doms) -> list:
+    """Per brush dimension: the anchor IN (0, 1), then the timed events — a
+    3-value jump to the top of the domain and the backtrack to unfiltered."""
+    out = []
+    for dim, src in BRUSH_DIMS:
+        d = doms[dim]
+        out.append((L.SetFilter(dim, values=(0, 1), source=src),
+                    [L.SetFilter(dim, values=(d - 3, d - 2, d - 1), source=src),
+                     L.ClearFilter(dim)]))
+    return out
+
+
+def _store_probes(t) -> int:
+    return t.store.hits + t.store.misses + t.store.widen_hits
+
+
+def _plan_execs(t) -> int:
+    p = t.cache_stats()["plans"]
+    return p["plans_built"] + p["plan_hits"]
+
+
+@contextlib.contextmanager
+def cube_build_probe(torch, L, builds: list, cuda: bool):
+    """While the block runs, record every bin-cube build: viz, dim, time
+    (synced), peak device memory during the build and the widest rowwise
+    field its sparse contractions took (rows × carried lanes, from the
+    calls themselves)."""
+    real_build, real_run = L.Session._build_bin_cube, L.PlanCache.run_sparse
+    widest = [0]
+
+    def run_sparse(self, catalog, rel, vals, incoming, preds, out_attrs, stats=None):
+        rel_set = set(rel.attrs)
+        doms = {a: d for m in incoming for a, d in m.domains.items() if a not in rel_set}
+        lanes = 1
+        for d in doms.values():
+            lanes *= d
+        widest[0] = max(widest[0], rel.row_bucket * lanes)
+        return real_run(self, catalog, rel, vals, incoming, preds, out_attrs, stats)
+
+    def build(self, viz, dim):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        before = self.bin_cube_bytes
+        widest[0] = 0
+        t0 = time.perf_counter()
+        ok = real_build(self, viz, dim)
+        if cuda:
+            torch.cuda.synchronize()
+        if ok:
+            builds.append(dict(
+                viz=viz, dim=dim, ms=(time.perf_counter() - t0) * 1e3,
+                cube_bytes=self.bin_cube_bytes - before, widest_rowwise_elems=widest[0],
+                peak_mb=torch.cuda.max_memory_allocated() / 2**20 if cuda else None,
+                base_mb=base / 2**20 if cuda else None,
+            ))
+        return ok
+
+    L.Session._build_bin_cube, L.PlanCache.run_sparse = build, run_sparse
+    try:
+        yield
+    finally:
+        L.Session._build_bin_cube, L.PlanCache.run_sparse = real_build, real_run
+
+
+AUDIT_BLOCK_ELEMS = 1 << 27        # plain-version columns per call: 1 GiB of float64 sums
+AUDIT_RTOL = 1e-5                  # the least relative tolerance of a float sum
+AUDIT_LAMBDA = 4.0                 # ... and of a segment of n rows: λ·√n·2^-24
+
+
+def hold_plain(torch, ref, codes, values, g: int, op: str, got, exact: bool,
+               what: str) -> tuple[float, float, int]:
+    """One segment reduction's output against ``ref.segment_aggregate_ref`` on
+    the same tensors, a block of columns at a time.  Bit for bit when
+    ``exact``; else each cell of a segment of n rows to a relative
+    max(``AUDIT_RTOL``, λ·√n·u), u = 2^-24: float32 atomics add n
+    non-negative terms in any order, and the float64 plain sum stands for
+    the exact one; λ·√n·u is the probabilistic bound of such a sum's
+    rounding error (Higham and Mary, 2019), λ = ``AUDIT_LAMBDA``.  Returns
+    the largest absolute and relative differences and the rows of the
+    segment with the largest relative one."""
+    if values.dim() == 1:
+        values, got = values[:, None], got[:, None]
+    step = max(1, AUDIT_BLOCK_ELEMS // max(values.shape[0], 1))
+    rows = torch.bincount(codes[(codes >= 0) & (codes < g)].long(), minlength=g)
+    tol = (AUDIT_LAMBDA * rows.double().sqrt() * 2.0 ** -24).clamp_min(AUDIT_RTOL)[:, None]
+    err, rel, at = 0.0, 0.0, 0
+    for j in range(0, values.shape[1], step):
+        part, want = got[:, j:j + step], ref.segment_aggregate_ref(
+            codes, values[:, j:j + step], g, op)
+        if exact:
+            check(torch.equal(part, want), f"{what} disagrees with its plain version")
+        r = torch.where(part == want, 0.0, (part - want).abs().double() / want.abs())
+        bad = r > tol
+        if bool(bad.any()):
+            k = int(bad.flatten().nonzero()[0])
+            check(False, f"{what} disagrees with its plain version: relative error "
+                  f"{float(r.flatten()[k])} over a segment of {int(rows[k // r.shape[1]])} "
+                  f"rows, tolerance {float(tol[k // r.shape[1], 0])}")
+        k = int(r.argmax())
+        if float(r.flatten()[k]) > rel:
+            rel, at = float(r.flatten()[k]), int(rows[k // r.shape[1]])
+        err = max(err, max_abs_err(part, want))
+    return err, rel, at
+
+
+@contextlib.contextmanager
+def kernel_audit(torch, K, L, audit: dict, exact: bool):
+    """While the block runs, hold every output of the two segment-kernel
+    wrappers (``aggregate_op``, and each message of a ``level_aggregate``
+    launch) against the plain version on the same tensors, and count the
+    level launches of every level-plan call (``run_level``,
+    ``run_sparse_batch``): more than one means the plan split its members
+    over several launches (``plans.ROWWISE_MAX_ELEMS``).  ``audit`` gets, per
+    kernel, the outputs checked, the widest launch (rows, padded lanes) and
+    the largest absolute error, and the launches per level-plan call."""
+    ops, ref = K.seg_ops, K.seg_ref
+    real_agg, real_level = ops.aggregate_op, ops.level_aggregate
+    real_runs = {name: getattr(L.PlanCache, name) for name in ("run_level", "run_sparse_batch")}
+    for name in SEGMENT:
+        audit[name] = dict(checked=0, widest=(0, 0), max_abs_err=0.0, max_rel_err=0.0,
+                           rows_at_max_rel=0)
+    audit["level_runs"] = []
+    running: list = []             # launches of the level-plan calls in progress
+
+    def note(name, rows, lanes, errs):
+        a = audit[name]
+        a["checked"] += 1
+        a["widest"] = max(a["widest"], (rows, lanes), key=lambda w: w[0] * w[1])
+        for err, rel, at in errs:
+            a["max_abs_err"] = max(a["max_abs_err"], err)
+            if rel > a["max_rel_err"]:
+                a["max_rel_err"], a["rows_at_max_rel"] = rel, at
+
+    def aggregate_op(codes, values, num_segments, op="sum"):
+        out = real_agg(codes, values, num_segments, op)
+        errs = [hold_plain(torch, ref, codes, values, num_segments, op, out, exact,
+                           f"segment_aggregate {op} N={codes.shape[0]} G={num_segments}")]
+        note("segment_aggregate", codes.shape[0], values.shape[-1] if values.dim() > 1 else 1,
+             errs)
+        return out
+
+    def level_aggregate(items, op="sum"):
+        outs = real_level(items, op=op)
+        if running:
+            running[-1] += 1
+        errs = [hold_plain(torch, ref, codes, values, g, op, o, exact,
+                           f"level_segment_aggregate {op} member N={codes.shape[0]} G={g} "
+                           f"V={values.shape[1]} of {len(items)}")
+                for (codes, values, g), o in zip(items, outs)]
+        note("level_segment_aggregate", sum(c.shape[0] for c, _, _ in items),
+             max(v.shape[1] for _, v, _ in items), errs)
+        return outs
+
+    def counted(real):
+        def run(self, *args, **kwargs):
+            running.append(0)
+            try:
+                return real(self, *args, **kwargs)
+            finally:
+                audit["level_runs"].append(running.pop())
+        return run
+
+    ops.aggregate_op, ops.level_aggregate = aggregate_op, level_aggregate
+    for name, real in real_runs.items():
+        setattr(L.PlanCache, name, counted(real))
+    try:
+        yield
+    finally:
+        ops.aggregate_op, ops.level_aggregate = real_agg, real_level
+        for name, real in real_runs.items():
+            setattr(L.PlanCache, name, real)
+    audit["split_runs"] = [n for n in audit["level_runs"] if n > 1]
+
+
+def print_audit(label: str, audit: dict, seconds: float) -> None:
+    for name in SEGMENT:
+        a = audit[name]
+        print(f"{label}: {name}: {a['checked']} launches held against the plain version, "
+              f"the widest {a['widest'][0]} rows x {a['widest'][1]} lanes, max abs err "
+              f"{a['max_abs_err']}, max relative err {a['max_rel_err']} (a segment of "
+              f"{a['rows_at_max_rel']} rows)", flush=True)
+    splits = audit["split_runs"]
+    print(f"{label}: {len(audit['level_runs'])} level-plan calls, {len(splits)} of them split "
+          f"(up to {max(splits, default=1)} launches in one call); audit {seconds:.1f} s",
+          flush=True)
+
+
+def explore_drive(torch, K, L, cat, device: str, rounds: int = EXPLORE_ROUNDS) -> dict:
+    """Both legs of the exploration on one device: leg A with
+    ``FixedKPrefetch(2)``, leg B with ``PredictiveThinkTime(16, 2)``.  One
+    warm pass (the context, then every dimension's anchor, jump and clear,
+    ``idle()`` after each event), then ``rounds`` timed passes interleaved
+    A, B.  Returns per-event and per-idle records, the cube builds and the
+    launch counts of the whole drive (counted from 0)."""
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_since_reset(*more) -> float | None:
+        """Peak device memory (MiB) since the last reset, or since a build
+        inside the step reset it (the builds' own peaks in ``more``)."""
+        if not cuda:
+            return None
+        return max([torch.cuda.max_memory_allocated() / 2**20, *more])
+
+    def reset_peak():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    events = explore_events(L, cat.domains())
+    jt = L.jt_from_catalog(cat)
+    policies = {"A": L.FixedKPrefetch(2),
+                "B": L.PredictiveThinkTime(cube_builds_per_idle=16, prefetch_k=2)}
+    steps, builds, idles, open_ms, open_peak = [], [], [], {}, {}
+    reset_launches(K)
+    with cube_build_probe(torch, L, builds, cuda):
+        legs = {}
+        for leg, policy in policies.items():
+            t = L.Treant(cat, ring=L.sr.SUM, jt=jt, policy=policy, device=device)
+            reset_peak()
+            t0 = time.perf_counter()
+            legs[leg] = (t, t.open_session(explore_spec(L), name=f"explore_{leg}"))
+            sync()
+            open_ms[leg] = (time.perf_counter() - t0) * 1e3
+            open_peak[leg] = peak_since_reset()
+
+        def apply(leg, rnd, event, timed):
+            t, sess = legs[leg]
+            reset_peak()
+            probes0, execs0 = _store_probes(t), _plan_execs(t)
+            res = sess.apply(event)
+            rec = dict(
+                leg=leg, round=rnd, timed=timed, event=repr(event),
+                fanout_ms=res.latency_s * 1e3, vizzes=len(res.affected),
+                prefetch_hits=sum(r.stats.prefetch_hits for r in res.results.values()),
+                bin_cube_hits=sum(r.stats.bin_cube_hits for r in res.results.values()),
+                plan_execs=_plan_execs(t) - execs0, store_probes=_store_probes(t) - probes0,
+                answers={v: r.factor.field.cpu() for v, r in res.results.items()},
+                queries={v: res.queries[v] for v in res.affected},
+            )
+            sync()
+            rec["peak_mb"] = peak_since_reset()
+            steps.append(rec)
+            n0, b0 = len(builds), t.scheduler.cube_builds
+            reset_peak()
+            t0 = time.perf_counter()
+            edges = sess.idle()
+            sync()
+            per_build = [b["peak_mb"] for b in builds[n0:]]
+            idles.append(dict(
+                leg=leg, round=rnd, after=repr(event), think_ms=(time.perf_counter() - t0) * 1e3,
+                edges=edges, cube_builds=t.scheduler.cube_builds - b0,
+                bin_cube_bytes=sess.bin_cube_bytes, peak_mb_per_build=per_build,
+                peak_mb=peak_since_reset(*per_build),
+            ))
+
+        for rnd in range(rounds + 1):  # round 0 is the warm pass
+            for leg in ("A", "B"):
+                if rnd == 0:
+                    for ctx in explore_context(L):
+                        apply(leg, rnd, ctx, False)
+                for anchor, follows in events:
+                    apply(leg, rnd, anchor, False)
+                    for ev in follows:
+                        apply(leg, rnd, ev, rnd > 0)
+    stats = {leg: dict(t.cache_stats()["scheduler"], **{
+        k: v for k, v in sess.stats().items() if k in ("prefetch_hits", "bin_cube_hits",
+                                                        "bin_cubes", "bin_cube_bytes")})
+             for leg, (t, sess) in legs.items()}
+    for t, sess in legs.values():
+        sess.close()
+    peaks = [*open_peak.values(), *(x["peak_mb"] for x in steps + idles)]
+    return dict(steps=steps, idles=idles, builds=builds, open_ms=open_ms, open_peak_mb=open_peak,
+                stats=stats, launches=read_launches(K),
+                peak_mb=max(peaks) if cuda else None)
+
+
+def explore_cold_checks(torch, L, cat, rec: dict, device: str) -> int:
+    """Every timed event's rendered vizzes against a cold engine (fresh
+    message store) on ``device``: rtol 1e-5 (float sums in another order)."""
+    jt = L.jt_from_catalog(cat)
+    cache = L.PlanCache(L.sr.SUM, device)
+    n = 0
+    for st in rec["steps"]:
+        if not st["timed"]:
+            continue
+        for viz, q in st["queries"].items():
+            eng = L.CJTEngine(jt, cat, L.sr.SUM, store=L.MessageStore(), plan_cache=cache,
+                              device=device)
+            want = eng.execute(q)[0].field.cpu()
+            torch.testing.assert_close(st["answers"][viz], want, rtol=1e-5, atol=0,
+                                       msg=f"explore {st['leg']} {st['event']} {viz}")
+            n += 1
+    return n
+
+
+EXPLORE_COUNTERS = ("leg", "round", "timed", "event", "vizzes", "prefetch_hits",
+                    "bin_cube_hits", "plan_execs", "store_probes")
+
+
+def explore_compare(torch, a: dict, b: dict, what: str) -> None:
+    """Two drives of the exploration (cuda and the CPU): equal counters per
+    event and per leg, equal cube builds, answers to rtol 1e-5."""
+    check(len(a["steps"]) == len(b["steps"]), f"{what}: step lists differ")
+    check(a["stats"] == b["stats"], f"{what}: leg counters {a['stats']} != {b['stats']}")
+    check([(x["viz"], x["dim"]) for x in a["builds"]] == [(x["viz"], x["dim"])
+                                                           for x in b["builds"]],
+          f"{what}: cube builds differ")
+    for x, y in zip(a["steps"], b["steps"]):
+        cx = {k: x[k] for k in EXPLORE_COUNTERS}
+        cy = {k: y[k] for k in EXPLORE_COUNTERS}
+        check(cx == cy, f"{what}: {cx} != {cy}")
+        for viz, g in x["answers"].items():
+            torch.testing.assert_close(g, y["answers"][viz], rtol=1e-5, atol=0,
+                                       msg=f"{what} {x['leg']} {x['event']} {viz}")
+
+
+def explore_phase(torch, np, K, L, schema, report: dict) -> dict:
+    t0 = time.perf_counter()
+    cat = schema.flight(n_flights=EXPLORE_FLIGHTS)
+    fl = cat.get("Flights")
+    print(f"explore: catalog of {fl.num_rows} flights (row bucket {fl.row_bucket}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = explore_drive(torch, K, L, cat, "cuda")
+    launches = rec["launches"]
+    print(f"explore: open_session {rec['open_ms']['A']:.1f} ms (leg A), "
+          f"{rec['open_ms']['B']:.1f} ms (leg B), peak device memory "
+          f"{rec['open_peak_mb']['A']:.1f} / {rec['open_peak_mb']['B']:.1f} MiB; "
+          f"launches {launches}; peak device memory of the phase {rec['peak_mb']:.1f} MiB",
+          flush=True)
+    for name in SEGMENT:
+        check(launches[name] > 0, f"explore: {name} never launched")
+    for st, idle in zip(rec["steps"], rec["idles"]):
+        tag = "timed" if st["timed"] else "warm "
+        print(f"explore {st['leg']} r{st['round']} {tag} {st['event'][:58]:58s} fan-out "
+              f"{st['fanout_ms']:8.3f} ms, {st['vizzes']} vizzes, prefetch hits "
+              f"{st['prefetch_hits']}, cube hits {st['bin_cube_hits']}, plan execs "
+              f"{st['plan_execs']}, store probes {st['store_probes']}; idle "
+              f"{idle['think_ms']:.1f} ms, {idle['cube_builds']} cube builds, bin_cube_bytes "
+              f"{idle['bin_cube_bytes']}, peak MiB per build "
+              f"{[round(m, 1) for m in idle['peak_mb_per_build']]}", flush=True)
+    timed_b = [st for st in rec["steps"] if st["timed"] and st["leg"] == "B"]
+    check(bool(timed_b), "explore: leg B has no timed event")
+    for st in timed_b:
+        check(st["vizzes"] > 0 and st["bin_cube_hits"] == st["vizzes"]
+              and st["plan_execs"] == 0 and st["store_probes"] == 0,
+              f"explore: leg B timed event not cube-served: {st['event']} "
+              f"{ {k: st[k] for k in EXPLORE_COUNTERS} }")
+    widest = max(rec["builds"], key=lambda b: b["widest_rowwise_elems"])
+    peak = max(rec["builds"], key=lambda b: b["peak_mb"])
+    print(f"explore: {len(rec['builds'])} cube builds; widest rowwise field "
+          f"{widest['widest_rowwise_elems']} elements ({widest['viz']} on {widest['dim']}); "
+          f"peak device memory of a build {peak['peak_mb']:.1f} MiB ({peak['viz']} on "
+          f"{peak['dim']}, {peak['ms']:.1f} ms)", flush=True)
+    t0 = time.perf_counter()
+    n = explore_cold_checks(torch, L, cat, rec, "cuda")
+    print(f"explore: {n} timed answers equal cold engines on the card "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    # the warm pass again at full size, every kernel launch held against the
+    # plain version (apart from the timed drive, whose latencies it would skew)
+    gc.collect()
+    torch.cuda.empty_cache()
+    audit: dict = {}
+    t0 = time.perf_counter()
+    with kernel_audit(torch, K, L, audit, exact=False):
+        explore_drive(torch, K, L, cat, "cuda", rounds=0)
+    print_audit("explore", audit, time.perf_counter() - t0)
+    for name in SEGMENT:
+        check(audit[name]["checked"] > 0, f"explore: no {name} launch was held")
+    check(bool(audit["split_runs"]), "explore: no level-plan call split its launch")
+    t0 = time.perf_counter()
+    small = schema.flight(n_flights=EXPLORE_CPU_FLIGHTS)
+    cpu = explore_drive(torch, K, L, small, "cpu", rounds=0)
+    cpu_s = time.perf_counter() - t0
+    gpu_small = explore_drive(torch, K, L, schema.flight(n_flights=EXPLORE_CPU_FLIGHTS),
+                              "cuda", rounds=0)
+    explore_compare(torch, gpu_small, cpu, f"explore at {EXPLORE_CPU_FLIGHTS} flights")
+    print(f"explore: the sequence at {EXPLORE_CPU_FLIGHTS} flights gives the same counters "
+          f"and answers on cuda and on the CPU (CPU run {cpu_s:.1f} s)", flush=True)
+
+    def fanout(leg, timed=True):
+        return [st["fanout_ms"] for st in rec["steps"] if st["leg"] == leg and st["timed"]]
+
+    report["explore"] = dict(
+        n_flights=fl.num_rows, row_bucket=fl.row_bucket, open_ms=rec["open_ms"],
+        open_peak_mb=rec["open_peak_mb"], peak_mb=rec["peak_mb"],
+        launches=launches, stats=rec["stats"], builds=rec["builds"], idles=rec["idles"],
+        steps=[{k: v for k, v in st.items() if k not in ("answers", "queries")}
+               for st in rec["steps"]],
+        timed_fanout_ms={"A": fanout("A"), "B": fanout("B")},
+        median_timed_fanout_ms={leg: statistics.median(fanout(leg)) for leg in ("A", "B")},
+        cold_checked=n, cpu_flights=EXPLORE_CPU_FLIGHTS, cpu_s=cpu_s, audit=audit,
+    )
+    print(f"explore: median timed fan-out {report['explore']['median_timed_fanout_ms']['A']:.3f}"
+          f" ms (leg A, σ prefetch), {report['explore']['median_timed_fanout_ms']['B']:.3f} ms "
+          f"(leg B, bin cubes)", flush=True)
+
+    def leg_b():  # open, context, one anchor with think-time, its jump and clear
+        t = L.Treant(cat, ring=L.sr.SUM, device="cuda",
+                     policy=L.PredictiveThinkTime(cube_builds_per_idle=16, prefetch_k=2))
+        sess = t.open_session(explore_spec(L), name="profiled")
+        for ev in explore_context(L):
+            sess.apply(ev)
+        anchor, follows = explore_events(L, cat.domains())[0]
+        sess.apply(anchor)
+        sess.idle()
+        for ev in follows:
+            sess.apply(ev)
+        sess.close()
+
+    profile_phase(torch, "explore", leg_b, report)
+    return dict(cat=cat, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the multi-tenant serving tier (benchmarks/bench_serve.py's storm)
+# ---------------------------------------------------------------------------
+
+SERVE_SESSIONS = 64
+SERVE_CPU_SESSIONS = 16
+SERVE_ROUNDS = 4                   # timed rounds; two warm rounds precede them
+DRAG = 3                           # brush positions per drag: 2 superseded + 1 final
+HOT_WINDOWS = 8                    # distinct σ windows per round
+WARM, WARM2 = -1, -2               # the warm rounds' markers
+FAN_DIMS = ("month", "carrier_group", "airport_size", "dow", "delay_bucket", "distance_bucket")
+
+
+def serve_spec(L, dims=FAN_DIMS):
+    """``bench_serve.serve_spec``: the brush source by airport_state plus one
+    COUNT-valued SUM viz per fan-out dimension."""
+    vizzes = [L.VizSpec("by_state", measure=None, ring="sum", group_by=("airport_state",))]
+    vizzes += [L.VizSpec(f"by_{d}", measure=None, ring="sum", group_by=(d,)) for d in dims]
+    return L.DashboardSpec(vizzes=tuple(vizzes))
+
+
+def spec_variants(L) -> list:
+    return [serve_spec(L, FAN_DIMS[i:i + 3]) for i in range(4)]
+
+
+def brush(L, i: int, rnd: int, step: int = DRAG - 1):
+    """``bench_serve.brush``: session ``i``'s ``step``-th drag position of
+    round ``rnd`` on airport_state (sessions cluster on the hot windows)."""
+    if rnd == WARM:
+        return L.SetFilter("airport_state", lo=20, hi=26, source="by_state")
+    if rnd == WARM2:
+        lo = (5 * (i % HOT_WINDOWS) + 3) % 49
+        return L.SetFilter("airport_state", lo=lo, hi=lo + 6, source="by_state")
+    lo = max((5 * (i % HOT_WINDOWS) + 11 * rnd) % 49 - (DRAG - 1 - step), 0)
+    return L.SetFilter("airport_state", lo=lo, hi=lo + 2 + rnd, source="by_state")
+
+
+def _drag_of(rnd: int) -> int:
+    return 1 if rnd in (WARM, WARM2) else DRAG
+
+
+def serial_pass(sessions, L, rounds, sync) -> list:
+    """Every submitted event applied one ``Session.apply`` at a time."""
+    lat = []
+    for rnd in rounds:
+        for step in range(_drag_of(rnd)):
+            for i, sess in enumerate(sessions):
+                t0 = time.perf_counter()
+                sess.apply(brush(L, i, rnd, step))
+                sync()
+                lat.append(time.perf_counter() - t0)
+    return lat
+
+
+def server_pass(server, handles, L, K, rounds, sync) -> dict:
+    """Submit each round's drag stream, ``step()`` until the queue drains,
+    ``idle()`` between rounds.  An applied event's latency is the synced
+    time of the ``step()`` that applied it; the wall time counts submitting and
+    stepping, not the think-time between rounds (``idle_ms``, apart), as
+    ``bench_serve``'s does; kernel-2 launches are counted per step."""
+    lat, per_step, idle_ms = [], [], []
+    wall = 0.0
+    for rnd in rounds:
+        t_round = time.perf_counter()
+        for step in range(_drag_of(rnd)):
+            for i, h in enumerate(handles):
+                h.submit(brush(L, i, rnd, step))
+        while server.queue_depth:
+            before = K.seg_ops.LAUNCHES["level_segment_aggregate"]
+            t0 = time.perf_counter()
+            n = server.step()
+            sync()
+            dt = time.perf_counter() - t0
+            per_step.append(K.seg_ops.LAUNCHES["level_segment_aggregate"] - before)
+            lat.extend([dt] * n)
+        wall += time.perf_counter() - t_round
+        t0 = time.perf_counter()
+        server.idle()
+        sync()
+        idle_ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(lat=lat, wall_s=wall, level_launches_per_step=per_step, idle_ms=idle_ms)
+
+
+def reads_of(handles) -> dict:
+    return {(h.id, v): h.read(v).factor.field.cpu() for h in handles for v in h.session.vizzes}
+
+
+def storm(torch, K, L, cat, device: str, n_sessions: int, variants: bool = False,
+          max_store_bytes=None, serial: bool = True) -> dict:
+    """One storm through a ``TreantServer`` (and, with ``serial``, the same
+    events applied one by one on a twin Treant).  Returns reads, counters,
+    latencies, store accounting and the launch counts of the server side."""
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    jt = L.jt_from_catalog(cat)
+    specs = spec_variants(L) if variants else [serve_spec(L)]
+    tag = "d" if variants else "s"
+    out = {}
+    if serial:
+        t_ser = L.Treant(cat, ring=L.sr.SUM, jt=jt, device=device)
+        sessions = [t_ser.open_session(specs[i % len(specs)], name=f"{tag}{i}")
+                    for i in range(n_sessions)]
+        serial_pass(sessions, L, [WARM, WARM2], sync)
+        lat = serial_pass(sessions, L, range(SERVE_ROUNDS), sync)
+        out["serial_lat"] = lat
+        out["serial_reads"] = {(s.id, v): s.read(v).factor.field.cpu()
+                               for s in sessions for v in s.vizzes}
+        for sess in sessions:
+            sess.close()
+        del t_ser, sessions
+    reset_launches(K)
+    t = L.Treant(cat, ring=L.sr.SUM, jt=jt, device=device)
+    server = L.TreantServer(t, max_queue=4 * n_sessions, max_store_bytes=max_store_bytes)
+    t0 = time.perf_counter()
+    handles = [server.open_session(specs[i % len(specs)], name=f"{tag}{i}")
+               for i in range(n_sessions)]
+    sync()
+    out["open_ms"] = (time.perf_counter() - t0) * 1e3
+    server_pass(server, handles, L, K, [WARM, WARM2], sync)
+    server.stats_ = L.ServeStats()
+    out.update(server_pass(server, handles, L, K, range(SERVE_ROUNDS), sync))
+    out["stats"] = server.stats()
+    out["reads"] = reads_of(handles)
+    store = t.store
+    out["store"] = dict(nbytes=store.nbytes, pinned=store.pinned_nbytes,
+                        budget=store.max_bytes, evictions=store.evictions,
+                        inflight=store._inflight_depth)
+    out["launches"] = read_launches(K)
+    out["events"] = n_sessions * SERVE_ROUNDS * DRAG
+    for h in handles:
+        h.close()
+    return out
+
+
+def serve_check(torch, rec: dict, what: str) -> None:
+    st = rec["stats"]
+    check(st["cross_session_batch_width"] > 1, f"{what}: no dispatch served two sessions")
+    n = len({sid for sid, _ in rec["reads"]})
+    check(st["coalesced_events"] == n * SERVE_ROUNDS * (DRAG - 1), f"{what}: coalescing {st}")
+    check(st["events_processed"] == n * SERVE_ROUNDS, f"{what}: processed {st}")
+    if "serial_reads" in rec:
+        check(rec["reads"].keys() == rec["serial_reads"].keys(), f"{what}: read sets differ")
+        for key, got in rec["reads"].items():
+            check(torch.equal(got, rec["serial_reads"][key]),
+                  f"{what}: {key} differs from serial apply")
+
+
+def serve_phase(torch, np, K, L, schema, cat, report: dict) -> dict:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    launches = {name: 0 for name in read_launches(K)}
+
+    def summary(label, rec):
+        st, lat = rec["stats"], rec["lat"]
+        eps = rec["events"] / rec["wall_s"]
+        row = dict(
+            events_per_s=eps, p99_event_ms=float(np.percentile(lat, 99)) * 1e3,
+            serial_events_per_s=(rec["events"] / sum(rec["serial_lat"])
+                                 if "serial_lat" in rec else None),
+            serial_p99_event_ms=(float(np.percentile(rec["serial_lat"], 99)) * 1e3
+                                 if "serial_lat" in rec else None),
+            cross_session_batch_width=st["cross_session_batch_width"],
+            coalesced_events=st["coalesced_events"], dedup_hits=st["dedup_hits"],
+            batches=st["batches"], level_launches_per_step=rec["level_launches_per_step"],
+            idle_ms=rec["idle_ms"], open_ms=rec["open_ms"], store=rec["store"],
+            launches=rec["launches"],
+        )
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        ser = ("" if row["serial_events_per_s"] is None else
+               f" (serial apply {row['serial_events_per_s']:.1f} events/s, p99 "
+               f"{row['serial_p99_event_ms']:.3f} ms)")
+        print(f"serve {label}: {eps:.1f} events/s, p99 applied-event latency "
+              f"{row['p99_event_ms']:.3f} ms{ser}; cross_session_batch_width "
+              f"{row['cross_session_batch_width']}, coalesced {row['coalesced_events']}, "
+              f"dedup hits {row['dedup_hits']}, {row['batches']} batches, level launches per "
+              f"step {row['level_launches_per_step']}; store {rec['store']['nbytes']} B "
+              f"(pinned floor {rec['store']['pinned']} B, budget {rec['store']['budget']}, "
+              f"evictions {rec['store']['evictions']}); open {rec['open_ms']:.1f} ms", flush=True)
+        out[label] = row
+
+    shared = storm(torch, K, L, cat, "cuda", SERVE_SESSIONS)
+    serve_check(torch, shared, "serve shared")
+    summary(f"shared{SERVE_SESSIONS}", shared)
+    distinct = storm(torch, K, L, cat, "cuda", SERVE_SESSIONS, variants=True)
+    serve_check(torch, distinct, "serve distinct")
+    summary(f"distinct{SERVE_SESSIONS}", distinct)
+    footprint, pinned = shared["store"]["nbytes"], shared["store"]["pinned"]
+    budget = pinned + (footprint - pinned) // 2
+    budgeted = storm(torch, K, L, cat, "cuda", SERVE_SESSIONS, max_store_bytes=budget,
+                     serial=False)
+    serve_check(torch, budgeted, "serve budget")
+    bs = budgeted["store"]
+    check(bs["nbytes"] <= budget and bs["pinned"] <= bs["nbytes"] and bs["inflight"] == 0,
+          f"serve budget: store at rest {bs} over the budget {budget}")
+    check(footprint == pinned or bs["evictions"] > 0, f"serve budget: nothing evicted {bs}")
+    for key, got in budgeted["reads"].items():
+        check(torch.equal(got, shared["reads"][key]),
+              f"serve budget: {key} differs from the unbudgeted storm")
+    summary(f"budget{SERVE_SESSIONS}", budgeted)
+    print(f"serve: budget {budget} B = pinned floor {pinned} B + half of the "
+          f"{footprint - pinned} evictable bytes; at rest {bs['nbytes']} B after "
+          f"{bs['evictions']} evictions; every read equals serial apply and the unbudgeted "
+          f"storm", flush=True)
+    for name in SEGMENT:
+        check(launches[name] > 0, f"serve: {name} never launched")
+    # the shared storm once more, every kernel launch held against the plain
+    # version (apart from the timed storms, whose latencies it would skew)
+    audit: dict = {}
+    t0 = time.perf_counter()
+    with kernel_audit(torch, K, L, audit, exact=True):
+        audited = storm(torch, K, L, cat, "cuda", SERVE_SESSIONS, serial=False)
+    print_audit("serve", audit, time.perf_counter() - t0)
+    for name in SEGMENT:
+        check(audit[name]["checked"] > 0, f"serve: no {name} launch was held")
+    for key, got in audited["reads"].items():
+        check(torch.equal(got, shared["reads"][key]),
+              f"serve audited: {key} differs from the shared storm")
+    t = L.Treant(cat, ring=L.sr.SUM, device="cuda")
+    server = L.TreantServer(t, max_queue=4 * SERVE_SESSIONS)
+    handles = [server.open_session(serve_spec(L), name=f"p{i}") for i in range(SERVE_SESSIONS)]
+    server_pass(server, handles, L, K, [WARM, WARM2], torch.cuda.synchronize)
+    profile_phase(torch, "serve", lambda: server_pass(server, handles, L, K, [0],
+                                                      torch.cuda.synchronize), report)
+    for h in handles:
+        h.close()
+    del t, server, handles
+    t0 = time.perf_counter()
+    small = schema.flight(n_flights=EXPLORE_CPU_FLIGHTS)
+    cpu = storm(torch, K, L, small, "cpu", SERVE_CPU_SESSIONS, serial=False)
+    cpu_s = time.perf_counter() - t0
+    gpu = storm(torch, K, L, schema.flight(n_flights=EXPLORE_CPU_FLIGHTS), "cuda",
+                SERVE_CPU_SESSIONS, serial=False)
+    keys = ("events_processed", "coalesced_events", "batches", "cross_session_batch_width",
+            "dedup_hits", "shared_prefetch_hits", "pool_cube_hits", "think_time_messages")
+    check({k: gpu["stats"][k] for k in keys} == {k: cpu["stats"][k] for k in keys},
+          f"serve at {EXPLORE_CPU_FLIGHTS} flights: counters differ")
+    for key, got in gpu["reads"].items():
+        check(torch.equal(got, cpu["reads"][key]),
+              f"serve at {EXPLORE_CPU_FLIGHTS} flights: {key} differs from the CPU")
+    print(f"serve: the storm at {EXPLORE_CPU_FLIGHTS} flights and {SERVE_CPU_SESSIONS} sessions "
+          f"gives the same reads and counters on cuda and on the CPU (CPU run {cpu_s:.1f} s); "
+          f"launches {launches}; peak device memory of the phase "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    report["serve"] = dict(out, budget=budget, footprint=footprint, pinned=pinned, audit=audit,
+                           launches=launches, cpu_flights=EXPLORE_CPU_FLIGHTS,
+                           cpu_sessions=SERVE_CPU_SESSIONS, cpu_s=cpu_s,
+                           max_allocated_mb=torch.cuda.max_memory_allocated() / 2**20)
+    return dict(launches=launches)
+
+
 def main() -> int:
     try:
         import torch
@@ -1464,8 +2213,9 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core import (
-        CJTEngine, ClearFilter, DashboardSpec, Drill, MessageStore, PlanCache, Query, SetFilter,
-        SwapMeasure, ToggleRelation, Treant, Undo, VizSpec, insert_empty_bag, jt_from_catalog,
+        CJTEngine, ClearFilter, DashboardSpec, Drill, FixedKPrefetch, MessageStore, PlanCache,
+        PredictiveThinkTime, Query, Session, SetFilter, SwapMeasure, ToggleRelation, Treant, Undo,
+        VizSpec, insert_empty_bag, jt_from_catalog,
     )
     from repro_torch.core import semiring as sr
     from repro_torch.kernels import build, launch
@@ -1481,6 +2231,7 @@ def main() -> int:
     from repro_torch.relational import StreamBuffer, schema
     from repro_torch.relational.relation import mask_in
     from repro_torch.relational.sql import parse
+    from repro_torch.serve import ServeStats, TreantServer
 
     K = types.SimpleNamespace(
         seg_kernel=seg_kernel, seg_ops=seg_ops, seg_ref=seg_ref, sc_kernel=sc_kernel,
@@ -1492,7 +2243,8 @@ def main() -> int:
         DashboardSpec=DashboardSpec, VizSpec=VizSpec, SetFilter=SetFilter,
         ClearFilter=ClearFilter, Drill=Drill, SwapMeasure=SwapMeasure,
         ToggleRelation=ToggleRelation, Undo=Undo, sr=sr, jt_from_catalog=jt_from_catalog,
-        StreamBuffer=StreamBuffer,
+        StreamBuffer=StreamBuffer, Session=Session, FixedKPrefetch=FixedKPrefetch,
+        PredictiveThinkTime=PredictiveThinkTime, TreantServer=TreantServer, ServeStats=ServeStats,
     )
     report: dict = {}
     started = time.perf_counter()
@@ -1521,9 +2273,16 @@ def main() -> int:
         records = kernel_records(torch, K, sliced, contract_rows, dense)
         print("live dashboards (session and ingest phases):", flush=True)
         live = live_phase(torch, np, K, L, schema, report)
+        del live["steps"]
+        print("exploration with think-time (phase 12):", flush=True)
+        explore = explore_phase(torch, np, K, L, schema, report)
+        print("serving tier (phase 13):", flush=True)
+        served = serve_phase(torch, np, K, L, schema, explore.pop("cat"), report)
         for r in records:
             r["launches_session"] = live["launches_session"][r["name"]]
             r["launches_ingest"] = live["launches_ingest"][r["name"]]
+            r["launches_explore"] = explore["launches"][r["name"]]
+            r["launches_serve"] = served["launches"][r["name"]]
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -29,9 +29,18 @@ _EXPORTS = {
     "DeltaStats": "calibration",
     "PlanCache": "plans",
     "PlanStats": "plans",
+    "slice_bin_cube": "plans",
+    "slice_bin_cubes": "plans",
+    "BrushTrajectory": "predictive",
     "DrainCalibration": "predictive",
+    "FixedKPrefetch": "predictive",
+    "PredictiveThinkTime": "predictive",
     "ThinkTimeBudget": "predictive",
+    "ThinkTimeConfig": "predictive",
     "ThinkTimePolicy": "predictive",
+    "reset_deprecation_warnings": "predictive",
+    "reset_think_time_config": "predictive",
+    "think_time_config": "predictive",
     "ApplyResult": "dashboard",
     "ClearFilter": "dashboard",
     "DashboardSpec": "dashboard",
@@ -45,6 +54,7 @@ _EXPORTS = {
     "ToggleRelation": "dashboard",
     "Undo": "dashboard",
     "VizSpec": "dashboard",
+    "speculate_filters": "dashboard",
     "FlushResult": "treant",
     "IngestStats": "treant",
     "Treant": "treant",

@@ -57,6 +57,7 @@ from . import semiring as sr
 from .factor import Factor, contract
 from .hypertree import JTree
 from .plans import (
+    UNION_BUDGET,
     AbsorbItem,
     PlanCache,
     absorb_batch_key,
@@ -462,6 +463,13 @@ class ExecStats:
     batched_absorptions: int = 0
     batch_width: int = 0
     batch_sessions: int = 0
+    # result served from the session's speculative-prefetch cache: nothing
+    # executed at all (no store probes, no plan dispatch)
+    prefetch_hits: int = 0
+    # result sliced out of a parked γ∪{dim} bin cube (select + ⊕-marginalize
+    # over the brush dimension): no store probes, no plan dispatch either,
+    # but unlike a prefetch hit the cube survives to serve the NEXT σ too
+    bin_cube_hits: int = 0
     # realized Steiner tree (§3.4.2): bags touched by recomputed messages
     # plus the absorption root — 1 when everything was served from cache
     steiner_size: int = 0
@@ -561,10 +569,7 @@ class CJTEngine:
         self.plans = (plan_cache or PlanCache(ring, self.device)) if use_plans else None
         # level-batched calibration is inert without plans (per-edge loop)
         self.batch_calibration = batch_calibration
-        # widest γ-domain product one union-carry calibration pass may carry:
-        # the reference's static default (its committed profile lowers it to
-        # 128, a CPU measurement that does not carry over to the card)
-        self.union_budget = 512
+        self.union_budget = UNION_BUDGET
         # Prop-2 signature memo, LRU-bounded: keyed by (query digest, edge)
         self._sig_memo: LRU = LRU(capacity=8192)
         # σ-placement memo: placement is a pure function of (σ digests, R̄, versions)

@@ -25,6 +25,16 @@ whose interaction queries differ incrementally from one another:
   across all (session, viz) pairs.  An interaction preempts *only* the
   pending calibration of the viz it changed; ``Session.idle`` drains the
   queue through the session's think-time policy.
+- **Think-time policies** (:mod:`repro_torch.core.predictive`):
+  ``Session.idle(policy=FixedKPrefetch(k))`` pre-executes the fan-out for up
+  to ``k`` neighboring σ values of the latest ``SetFilter``
+  (:func:`speculate_filters`) and parks the absorbed per-viz results in the
+  session's prefetch cache; ``PredictiveThinkTime`` also materializes **bin
+  cubes** — the γ∪{brush-dim} aggregate per (viz, likely dim), so any later
+  σ on that dim is an O(bins) slice.  A brush on a prefetched σ or a
+  cube-covered dim is served with zero store probes and zero plan
+  executions (``ExecStats.prefetch_hits`` / ``bin_cube_hits``).  The
+  deprecated ``idle(speculate=k)`` maps onto ``FixedKPrefetch(k)``.
 - ``Session.sql(viz, text)`` routes the restricted SQL front-end into the
   same layer, and the legacy ``Treant`` wrappers run on spec-less sessions.
 
@@ -32,9 +42,6 @@ Query derivation contract (equal digests to hand-built chains): for each viz,
 
     base → with_measure(swap) → with_group_by(spec γ + drills)
          → relation toggles → with_filters(crossfilter σ, source excluded)
-
-Speculative σ prefetch and bin cubes are not ported yet (ROADMAP Queue 1
-item 14).
 """
 
 from __future__ import annotations
@@ -44,8 +51,17 @@ import time
 from typing import TYPE_CHECKING, Mapping
 
 from repro_torch.relational.relation import Predicate, mask_in, mask_range
-from .calibration import CalibrationPlan, CJTEngine, ExecStats, synchronize
-from .predictive import ThinkTimeBudget, ThinkTimePolicy
+from .calibration import CalibrationPlan, CJTEngine, ExecStats, factor_nbytes, synchronize
+from .plans import slice_bin_cube, slice_bin_cubes
+from .predictive import (
+    BrushTrajectory,
+    FixedKPrefetch,
+    ThinkTimeBudget,
+    ThinkTimePolicy,
+    _BinCube,
+    think_time_config,
+    warn_deprecated_once,
+)
 from .query import Query
 
 if TYPE_CHECKING:  # pragma: no cover — import cycle guard (treant imports us)
@@ -170,6 +186,88 @@ def _group_by_engine(pairs):
     return list(groups.items())
 
 
+_UNCACHED = object()  # cube-probe memo sentinel (None is a valid memo value)
+
+
+def speculate_filters(ev: SetFilter, domain: int, k: int) -> list[SetFilter]:
+    """Up to ``k`` likely-next σ values for the same dimension, nearest first.
+
+    Brushes move locally: a range filter's neighbors are the adjacent windows
+    of the same width (clipped at the domain edges); an IN-list's neighbors
+    are the value set shifted by whole spans (sibling domain values).  The
+    candidate list is deterministic — alternating +/- by distance — so
+    prefetch behavior is reproducible and testable.
+
+    Termination tracks each direction's *liveness* separately and stops only
+    when both are exhausted, so the generator returns exactly
+    ``min(k, feasible)`` distinct candidates, clipped edge windows
+    included.
+    """
+    out: list[SetFilter] = []
+    seen = set()
+
+    def emit(cand: SetFilter) -> bool:
+        key = (cand.values, cand.lo, cand.hi)
+        if key not in seen:
+            seen.add(key)
+            out.append(cand)
+        return len(out) >= k
+
+    if k <= 0:
+        return out
+    if ev.values:
+        vals = sorted(set(ev.values))
+        span = vals[-1] - vals[0] + 1
+        pos = neg = True  # direction still inside the domain
+        step = 0
+        while pos or neg:
+            step += 1
+            off = step * span
+            # a shifted IN-list is feasible only when it fits whole: once one
+            # endpoint leaves the domain, every later step in that direction
+            # is further out — the direction is dead
+            if pos and vals[-1] + off >= domain:
+                pos = False
+            elif pos:
+                if emit(dataclasses.replace(
+                        ev, values=tuple(v + off for v in vals))):
+                    return out
+            if neg and vals[0] - off < 0:
+                neg = False
+            elif neg:
+                if emit(dataclasses.replace(
+                        ev, values=tuple(v - off for v in vals))):
+                    return out
+        return out
+    if ev.lo is None or ev.hi is None:
+        return out
+    width = max(ev.hi - ev.lo, 1)
+    pos = neg = True
+    step = 0
+    while pos or neg:
+        step += 1
+        off = step * width
+        # ranges clip at the edges: a direction stays live until the clipped
+        # window collapses (lo >= domain / hi <= 0); the clipped edge windows
+        # themselves are feasible candidates and must be emitted
+        if pos:
+            lo, hi = ev.lo + off, min(ev.hi + off, domain)
+            if lo >= domain or lo >= hi:
+                pos = False
+            elif (lo, hi) != (ev.lo, ev.hi):
+                if emit(dataclasses.replace(ev, lo=lo, hi=hi)):
+                    return out
+        if neg:
+            lo, hi = max(ev.lo - off, 0), ev.hi - off
+            if hi <= 0 or lo >= hi:
+                neg = False
+            elif (lo, hi) != (ev.lo, ev.hi):
+                if emit(dataclasses.replace(ev, lo=lo, hi=hi)):
+                    return out
+    return out
+
+
+
 # ---------------------------------------------------------------------------
 # Results
 # ---------------------------------------------------------------------------
@@ -182,7 +280,8 @@ class InteractionResult:
     sibling group shares one dispatch, so grouped vizzes report the same
     value, and the device sync happens once for all vizzes (see
     ``ApplyResult.latency_s``).  ``steiner_size`` is realized from the
-    engine's ExecStats (bags touched by recomputation ∪ root).
+    engine's ExecStats (bags touched by recomputation ∪ root); 0 when the
+    result came from the prefetch cache or a bin cube (nothing executed).
     """
 
     factor: object
@@ -240,6 +339,10 @@ class ThinkTimeScheduler:
         self.invalidations = 0   # tasks dropped by close / clear
         self.completed = 0       # tasks fully calibrated
         self.messages = 0        # edges processed across all runs
+        self.speculative_queries = 0   # prefetch queries executed during idle
+        self.speculative_messages = 0  # messages those queries materialized
+        self.policy_decisions = 0      # work items a ThinkTimePolicy attempted
+        self.cube_builds = 0           # bin cubes materialized during idle
         self._session_preemptions: dict[str, int] = {}
 
     def schedule(self, session: str, viz: str, query: Query, engine: CJTEngine,
@@ -352,6 +455,32 @@ class ThinkTimeScheduler:
             if budget_seconds is not None and time.perf_counter() - t0 >= budget_seconds:
                 return done
 
+    def speculate(self, session: str, items: list[tuple[str, Query, CJTEngine]]
+                  ) -> dict[tuple[str, str], object]:
+        """Pre-execute likely-next fan-out queries.
+
+        ``items`` are (viz, derived query, engine) triples for σ values the
+        user has not selected yet.  They run per engine through
+        ``execute_many`` — the batched absorption path a real event takes —
+        with the session:viz producer tag, so their messages land in the
+        shared store as a real interaction's would.  Returns
+        ``{(viz, query digest): absorbed factor}`` for the session to park.
+        """
+        out: dict[tuple[str, str], object] = {}
+        pending = []
+        for eng, group in _group_by_engine((eng, (viz, q)) for viz, q, eng in items):
+            results = eng.execute_many(
+                [q for _, q in group], sync=False,
+                tags=[f"{session}:{viz}" for viz, _ in group],
+            )
+            for (viz, q), (factor, stats) in zip(group, results):
+                out[(viz, q.digest)] = factor
+                pending.append(factor.field)
+                self.speculative_messages += stats.messages_computed
+            self.speculative_queries += len(group)
+        synchronize(pending)
+        return out
+
     def stats(self) -> dict:
         return {
             "pending": len(self._tasks),
@@ -359,6 +488,10 @@ class ThinkTimeScheduler:
             "invalidations": self.invalidations,
             "completed": self.completed,
             "messages": self.messages,
+            "speculative_queries": self.speculative_queries,
+            "speculative_messages": self.speculative_messages,
+            "policy_decisions": self.policy_decisions,
+            "cube_builds": self.cube_builds,
         }
 
 
@@ -374,6 +507,22 @@ class _VizView:
     measure: tuple[str, str, str] | None = None   # (relation, column, ring)
     toggled: frozenset[str] = frozenset()
     crossfilter: bool = True
+
+
+@dataclasses.dataclass
+class _Prefetched:
+    """One parked speculative result.
+
+    ``dist`` is the candidate's rank in :func:`speculate_filters`' nearest-
+    first order (0 = the σ value right next to the anchor brush): capacity
+    eviction drops the *farthest* entries first.  ``query`` lets
+    ``Treant.update`` / ``flush`` invalidate only entries that can see an
+    updated relation.
+    """
+
+    factor: object
+    query: Query
+    dist: int
 
 
 class Session:
@@ -397,7 +546,25 @@ class Session:
         self._undo: list[tuple] = []
         self.undo_depth = 64
         self.events_applied = 0
+        # speculative σ prefetch: (viz, query digest) -> _Prefetched entry,
+        # filled by think-time policies, served (and popped) by _fan_out
+        self._prefetched: dict[tuple[str, str], _Prefetched] = {}
+        self.prefetch_capacity = think_time_config().prefetch_capacity
+        self.prefetch_hits = 0
+        self._last_filter: SetFilter | None = None
+        # bin cubes: (viz, cube-query digest) -> _BinCube, plus a per-viz
+        # index of which dims have a parked cube.  Unlike _Prefetched entries
+        # cubes are NOT popped on hit — one cube serves every later σ on its
+        # dimension until data invalidates it.
+        self._bin_cubes: dict[tuple[str, str], _BinCube] = {}
+        self._cube_dims: dict[str, set[str]] = {}
+        # (viz, dim, q.digest) -> cube-query digest (or None): a pure
+        # function of frozen queries (digests fold in relation versions)
+        self._cube_probe_memo: dict[tuple[str, str, str], str | None] = {}
         self._derive_memo: dict[tuple, dict[str, Query]] = {}
+        self.bin_cube_hits = 0
+        # online brush-trajectory model feeding PredictiveThinkTime
+        self.trajectory = BrushTrajectory()
         # session-default think-time policy; None falls back to the Treant's
         self.policy: ThinkTimePolicy | None = None
         # offline-calibration pins, keyed by pin-time digest: the *effective*
@@ -554,8 +721,14 @@ class Session:
             if event.source is not None:
                 self._view(event.source)
             self._filters[event.attr] = (self._predicate_of(event), event.source)
+            self._last_filter = event  # speculation anchor (σ prefetch)
+            self.trajectory.observe(event)
         elif isinstance(event, ClearFilter):
             self._filters.pop(event.attr, None)
+            # don't speculate around a dimension the user just abandoned
+            if self._last_filter is not None and self._last_filter.attr == event.attr:
+                self._last_filter = None
+            self.trajectory.forget(event.attr)
         elif isinstance(event, Drill):
             v = self._view(event.viz)
             if event.attr not in self.catalog.domains():
@@ -581,11 +754,48 @@ class Session:
         results: dict[str, InteractionResult] = {}
         pending = []
         t0 = time.perf_counter()
-        # one execute_many per engine with batch_fanout (sibling absorptions
-        # share a launch), else one execute per viz; the device syncs once
+        # serve speculatively prefetched results first: the fan-out for this
+        # σ already ran during think-time, so the viz costs zero store probes
+        # and zero plan executions now
+        to_run: list[str] = []
+        cube_hits: list[tuple[str, Query, _BinCube, str]] = []
+        for name in affected:
+            q = derived[name]
+            hit = self._prefetched.pop((name, q.digest), None)
+            if hit is not None:
+                self.prefetch_hits += 1
+                results[name] = InteractionResult(hit.factor, ExecStats(prefetch_hits=1), 0.0, 0)
+                self._current[name] = q
+                self.scheduler.schedule(self.id, name, q,
+                                        self._treant.engine_for(q.ring_name, q.measure))
+                continue
+            # then the bin cubes: a brush on a cube-materialized dimension is
+            # an O(bins) slice of the parked γ∪{dim} aggregate, for ANY σ
+            match = self._match_bin_cube(name, q, hint=getattr(event, "attr", None))
+            if match is not None:
+                cube_hits.append((name, q, match[0], match[1]))
+            else:
+                to_run.append(name)
+        if cube_hits:
+            engine = self._treant.engine_for(cube_hits[0][1].ring_name, cube_hits[0][1].measure)
+            sliced = slice_bin_cubes(
+                [(e.factor, dim, [p.mask for p in q.predicates_on(dim)], q.group_by)
+                 for _, q, e, dim in cube_hits],
+                stats=engine.plans.stats if engine.plans is not None else None,
+            )
+            for (name, q, _, _), f in zip(cube_hits, sliced):
+                self.bin_cube_hits += 1
+                results[name] = InteractionResult(f, ExecStats(bin_cube_hits=1), 0.0, 0)
+                self._current[name] = q
+                pending.append(f.field)
+                self.scheduler.schedule(self.id, name, q,
+                                        self._treant.engine_for(q.ring_name, q.measure))
+        # the rest: one execute_many per engine with batch_fanout (sibling
+        # absorptions share a launch), else one execute per viz; the device
+        # syncs once
         for engine, names in _group_by_engine(
             (self._treant.engine_for(derived[n].ring_name, derived[n].measure), n)
-            for n in affected
+            for n in to_run
         ):
             td = time.perf_counter()
             if self._treant.batch_fanout and len(names) > 1:
@@ -623,6 +833,13 @@ class Session:
     def _restore(self, snap) -> None:
         filters, views = snap
         self._filters = dict(filters)
+        # undone brush: stop speculating on it — also when the restore
+        # reverts to an *older* σ on the same attr, not just to no σ
+        lf = self._last_filter
+        if lf is not None:
+            cur = self._filters.get(lf.attr)
+            if cur is None or cur[0].digest != self._predicate_of(lf).digest:
+                self._last_filter = None
         for n, (gb, meas, tog) in views.items():
             if n in self._views:
                 v = self._views[n]
@@ -665,15 +882,262 @@ class Session:
 
     # -- think time ------------------------------------------------------------
     def idle(self, budget_messages: int | None = None, budget_seconds: float | None = None,
-             policy: ThinkTimePolicy | None = None) -> int:
-        """Spend user think-time on this session, driven by ONE policy
-        (``policy``, else ``self.policy``, else the Treant's default), which
-        drains pending calibrations (preemptible: exhausting the budget keeps
-        iterator positions and all materialized messages).  Returns the
-        number of calibration edges processed."""
+             speculate: int = 0, policy: ThinkTimePolicy | None = None) -> int:
+        """Spend user think-time on this session, driven by ONE policy.
+
+        The policy (``policy``, else ``self.policy``, else the Treant's
+        default — ``DrainCalibration`` unless configured) first drains
+        pending calibrations (preemptible: exhausting the budget keeps
+        iterator positions and all materialized messages), then, while the
+        shared budget has slack, runs its speculative extras:
+        ``FixedKPrefetch(k)`` pre-executes the fan-out for the k nearest σ
+        neighbors of the last brush; ``PredictiveThinkTime`` builds
+        trajectory-ranked bin cubes and direction-biased σ prefetch.  Returns
+        the number of calibration edges processed.
+
+        ``speculate=k`` is deprecated: it maps to ``FixedKPrefetch(k)`` and
+        warns once per process.
+        """
+        if speculate:
+            warn_deprecated_once(
+                "Session.idle(speculate=)",
+                "Session.idle(speculate=k) is deprecated; pass "
+                "policy=FixedKPrefetch(k) instead",
+            )
+            if policy is None:
+                policy = FixedKPrefetch(speculate)
         if policy is None:
             policy = self.policy or self._treant.think_time_policy
         return policy.run(self, ThinkTimeBudget(messages=budget_messages, seconds=budget_seconds))
+
+    def _speculate(self, k: int) -> int:
+        """Pre-execute the fan-out for up to ``k`` neighbor σ values of the
+        last SetFilter; park the absorbed results in the prefetch cache."""
+        ev = self._last_filter
+        if ev is None:
+            return 0
+        doms = self.catalog.domains()
+        return self._speculate_candidates(ev, speculate_filters(ev, doms[ev.attr], k))
+
+    def _speculate_candidates(self, ev: SetFilter, cands: list[SetFilter]) -> int:
+        """Pre-execute the fan-out for explicit candidate σ events on
+        ``ev.attr`` (candidate rank = list position, nearest/likeliest
+        first); park the absorbed results in the prefetch cache."""
+        items: list[tuple[str, Query, CJTEngine]] = []
+        # (viz, digest) -> (query, candidate rank)
+        meta: dict[tuple[str, str], tuple[Query, int]] = {}
+        saved = self._filters.get(ev.attr)
+        try:
+            for dist, cand in enumerate(cands):
+                # derive through the real contract with the candidate σ
+                # swapped in, so digests match the eventual real event's
+                self._filters[ev.attr] = (self._predicate_of(cand), cand.source)
+                for name in sorted(self._views):
+                    view = self._views[name]
+                    if not view.crossfilter or name == cand.source:
+                        continue
+                    q = self.derive(name)
+                    # a ToggleRelation may have removed every relation that
+                    # carries the brush attr from this viz's join scope —
+                    # executing would crash placing σ on an invisible attr
+                    if not self._treant.sees_attr(q, ev.attr):
+                        continue
+                    key = (name, q.digest)
+                    if (
+                        q.digest == self._current[name].digest
+                        or key in self._prefetched
+                        or key in meta
+                    ):
+                        continue
+                    meta[key] = (q, dist)
+                    items.append(
+                        (name, q, self._treant.engine_for(q.ring_name, q.measure))
+                    )
+        finally:
+            if saved is None:
+                self._filters.pop(ev.attr, None)
+            else:
+                self._filters[ev.attr] = saved
+        if not items:
+            return 0
+        for key, factor in self.scheduler.speculate(self.id, items).items():
+            q, dist = meta[key]
+            self._prefetched[key] = _Prefetched(factor, q, dist)
+        self._evict_prefetched()
+        return len(items)
+
+    def _evict_prefetched(self) -> None:
+        """Capacity eviction, farthest-from-anchor first.
+
+        Entries park the fan-out for σ values *near* the user's last brush;
+        when ``speculate(k)`` overshoots ``prefetch_capacity`` the useful
+        entries are exactly the nearest ones, so evict by descending
+        speculation distance (ties: oldest insertion first).
+        """
+        while len(self._prefetched) > self.prefetch_capacity:
+            victim = max(
+                enumerate(self._prefetched.items()),
+                key=lambda e: (e[1][1].dist, -e[0]),
+            )[1][0]
+            del self._prefetched[victim]
+
+    # -- bin cubes --------------------------------------------------------------
+    def _cube_query(self, q: Query, dim: str) -> Query | None:
+        """The cube query serving any σ on ``dim`` for a viz whose derived
+        query is ``q``: drop the σ on ``dim``, group by γ∪{dim}.  Build and
+        probe both derive the key through here, so the digests meet as long
+        as only the σ on ``dim`` differs.  Returns None when the dimension
+        is unknown, invisible to the viz's join scope (ToggleRelation), or
+        the cube would blow the cell budget."""
+        doms = self.catalog.domains()
+        if dim not in doms or not self._treant.sees_attr(q, dim):
+            return None
+        gamma = tuple(dict.fromkeys(q.group_by + (dim,)))
+        cells = 1
+        for a in gamma:
+            cells *= doms[a]
+        if cells > think_time_config().cube_cell_budget:
+            return None
+        return q.without_predicate(dim).with_group_by(*gamma)
+
+    def _build_bin_cube(self, viz: str, dim: str) -> bool:
+        """Materialize the γ∪{dim} cube for one viz during think-time.
+
+        Executes through the shared engine with this session's producer tag
+        (union-carry widening applies: the cube's messages are the wide ones
+        sibling calibrations share), then parks the absorbed factor keyed by
+        the cube query's digest."""
+        q = self.derive(viz)
+        cq = self._cube_query(q, dim)
+        if cq is None:
+            return False
+        key = (viz, cq.digest)
+        if key in self._bin_cubes:
+            # refresh recency: the policy still predicts this cube, so it
+            # must outlive the churn of transient-σ builds (LRU, not FIFO).
+            # Register the dim on the entry regardless — when dim is already
+            # in the viz's γ, several (viz, dim) targets collapse to the SAME
+            # cube query (identical digest), and both the probe and the
+            # eviction bookkeeping need the full covered-dim set.
+            entry = self._bin_cubes.pop(key)
+            entry.dims.add(dim)
+            self._bin_cubes[key] = entry
+            self._cube_dims.setdefault(viz, set()).add(dim)
+            return False
+        engine = self._treant.engine_for(cq.ring_name, cq.measure)
+        self.store.tag = f"{self.id}:{viz}"
+        try:
+            factor, stats = engine.execute(cq)
+        finally:
+            self.store.tag = None
+        if dim not in factor.attrs:  # γ collapsed the dim away: not sliceable
+            return False
+        self._bin_cubes[key] = _BinCube(
+            factor=factor, query=cq, dim=dim, viz=viz,
+            nbytes=factor_nbytes(factor),
+        )
+        self._cube_dims.setdefault(viz, set()).add(dim)
+        self.scheduler.cube_builds += 1
+        self.scheduler.speculative_messages += stats.messages_computed
+        if engine.plans is not None:
+            engine.plans.stats.cube_builds += 1
+        self._evict_bin_cubes()
+        return True
+
+    def _match_bin_cube(self, viz: str, q: Query, hint: str | None = None):
+        """Find a parked cube covering ``q``: for each dim with a cube on
+        this viz, rebuild the cube key from the NEW query (only the σ on
+        that dim may differ) and return ``(entry, dim)`` on a digest match.
+        A σ-less match (the dim was just cleared) works too — the slice is
+        then a pure marginalization, so ClearFilter hits.
+
+        ``hint`` (the triggering event's dimension) is probed first: each
+        probe costs a Query rebuild + digest, and the brushed dim is the one
+        whose cube matches on the first try.  The q.digest → cube-key
+        derivation is memoized: revisited dashboard states (backtracks,
+        repeated jumps) skip the Query rebuild entirely.
+        """
+        dims = self._cube_dims.get(viz)
+        if not dims:
+            return None
+        order = sorted(dims)
+        if hint is not None and hint in dims:
+            order.remove(hint)
+            order.insert(0, hint)
+        for dim in order:
+            memo_key = (viz, dim, q.digest)
+            cd = self._cube_probe_memo.get(memo_key, _UNCACHED)
+            if cd is _UNCACHED:
+                cq = self._cube_query(q, dim)
+                cd = None if cq is None else cq.digest
+                if len(self._cube_probe_memo) > 4096:
+                    self._cube_probe_memo.clear()
+                self._cube_probe_memo[memo_key] = cd
+            if cd is None:
+                continue
+            entry = self._bin_cubes.pop((viz, cd), None)
+            if entry is None:
+                continue
+            self._bin_cubes[(viz, cd)] = entry  # LRU: hit refreshes
+            return entry, dim
+        return None
+
+    def _probe_bin_cube(self, viz: str, q: Query, hint: str | None = None):
+        """Match + slice in one step (the single-viz probe used by the
+        serving tier and tests; ``_fan_out`` batches its slices instead)."""
+        match = self._match_bin_cube(viz, q, hint)
+        if match is None:
+            return None
+        entry, dim = match
+        engine = self._treant.engine_for(q.ring_name, q.measure)
+        sliced = slice_bin_cube(
+            entry.factor, dim,
+            [p.mask for p in q.predicates_on(dim)], q.group_by,
+            stats=engine.plans.stats if engine.plans is not None else None,
+        )
+        self.bin_cube_hits += 1
+        return sliced
+
+    def _evict_bin_cubes(self) -> None:
+        """Capacity eviction, least-recently-used first: probe hits and
+        still-predicted rebuild skips refresh recency, so cubes built under
+        a transient σ (one-shot digests) age out ahead of the hot ones."""
+        cap = think_time_config().cube_capacity
+        while len(self._bin_cubes) > cap:
+            key = next(iter(self._bin_cubes))
+            self._drop_cube(key)
+
+    def _drop_cube(self, key: tuple[str, str]) -> None:
+        entry = self._bin_cubes.pop(key, None)
+        if entry is None:
+            return
+        dims = self._cube_dims.get(entry.viz)
+        if dims is None:
+            return
+        still = set()
+        for e in self._bin_cubes.values():
+            if e.viz == entry.viz:
+                still |= e.dims
+        for d in entry.dims - still:
+            dims.discard(d)
+        if not dims:
+            self._cube_dims.pop(entry.viz, None)
+
+    def invalidate_bin_cubes(self, changed) -> int:
+        """Drop every cube whose query can see one of the ``changed``
+        relations (mirrors the prefetch-cache invalidation on update/flush).
+        Returns the number of cubes dropped."""
+        stale = [
+            k for k, e in self._bin_cubes.items()
+            if any(self._treant._sees(e.query, r) for r in changed)
+        ]
+        for k in stale:
+            self._drop_cube(k)
+        return len(stale)
+
+    @property
+    def bin_cube_bytes(self) -> int:
+        return sum(e.nbytes for e in self._bin_cubes.values())
 
     # -- filters / introspection ----------------------------------------------
     @property
@@ -691,6 +1155,13 @@ class Session:
             "scheduler_messages_total": self.scheduler.messages,
             "cross_viz_hits_total": self.store.cross_tag_hits,
             "undo_depth": len(self._undo),
+            "prefetched": len(self._prefetched),
+            "prefetch_hits": self.prefetch_hits,
+            "speculative_queries_total": self.scheduler.speculative_queries,
+            "bin_cubes": len(self._bin_cubes),
+            "bin_cube_hits": self.bin_cube_hits,
+            "bin_cube_bytes": self.bin_cube_bytes,
+            "trajectory": self.trajectory.state(),
         }
 
     def close(self) -> None:
@@ -706,4 +1177,7 @@ class Session:
             self._treant.engine_for(q.ring_name, q.measure).unpin_query(q)
         self._pinned_queries.clear()
         self.store.drop_producer(f"{self.id}:")
+        self._prefetched.clear()
+        self._bin_cubes.clear()
+        self._cube_dims.clear()
         self._treant._sessions.pop(self.id, None)

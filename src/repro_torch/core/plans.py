@@ -48,6 +48,21 @@ from . import semiring as sr
 from .factor import Factor, contract
 
 
+# widest γ-domain product one union-carry calibration pass may carry: the
+# reference's static default (its committed profile lowers it to 128, a CPU
+# measurement that does not carry over to the card)
+UNION_BUDGET = 512
+
+# A level launch concatenates its members' rowwise fields (rows × carried γ
+# lanes), padded to the widest.  Past ROWWISE_MAX_ELEMS elements (8 GiB of
+# float32, a tenth of an 80 GB card: the gathers and products around the
+# operands take a few times more) the level plan splits its members over
+# several level_segment_aggregate launches.  A member past it on its own
+# still goes out in one launch (chip_smoke.py's serving phase has one: a
+# 336-lane calibration message over 2^23 rows, 11.3 GB of float32).
+ROWWISE_MAX_ELEMS = 1 << 31
+
+
 def resolve_device(device: torch.device | str | None = None) -> torch.device:
     """The device an engine runs on: ``cuda`` unless the caller asks for
     another.  Raises when CUDA is asked for (explicitly or by default) and
@@ -111,12 +126,69 @@ class PlanStats:
     # session, and the widest distinct-session count observed
     cross_session_execs: int = 0
     cross_session_width: int = 0
+    # bin cubes (core/predictive.py): think-time γ∪{dim} materializations
+    # built through this engine, and warm brushes served by slicing one
+    # (select + ⊕-marginalize — no plan execution, no store probe)
+    cube_builds: int = 0
+    cube_slices: int = 0
 
     # counters that are high-water marks, not sums
     MAX_FIELDS = ("batch_width", "level_batch_width", "cross_session_width")
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+# ---------------------------------------------------------------------------
+# bin-cube slicing: σ as select, then ⊕-marginalize the brush dimension away
+# ---------------------------------------------------------------------------
+
+_DEVICE_MASKS = LRU(1024)
+
+
+def _device_mask(mask, device: torch.device) -> torch.Tensor:
+    """Content-addressed device copy of a σ mask, keyed by its bytes, shape,
+    dtype and device: the same predicate fans out to every sibling viz, so
+    without this each viz pays its own host→device copy of an identical
+    (tiny) mask."""
+    arr = np.ascontiguousarray(np.asarray(mask))
+    key = (arr.tobytes(), arr.shape, str(arr.dtype), str(device))
+    m = _DEVICE_MASKS.get(key)
+    if m is None:
+        m = torch.from_numpy(arr.copy()).to(device)
+        _DEVICE_MASKS.put(key, m)
+    return m
+
+
+def _slice(cube: Factor, dim: str, masks, group_by) -> Factor:
+    f = cube
+    for m in masks:
+        f = f.select(dim, _device_mask(m, cube.device))
+    return f.project_to(tuple(group_by))
+
+
+def slice_bin_cube(cube: Factor, dim: str, masks, group_by,
+                   stats: PlanStats | None = None) -> Factor:
+    """Serve a brush from a parked γ∪{dim} bin cube: σ as ``select`` (0̄ is
+    the ⊕-identity, so zero-annotating non-matching bins is exact for every
+    semiring) then ⊕-marginalize ``dim`` away via ``project_to``.  With no
+    masks this serves ``ClearFilter`` (pure marginalization).  O(bins) work
+    in plain torch on the cube's device — no store probes, no plan
+    executions."""
+    f = _slice(cube, dim, masks, group_by)
+    if stats is not None:
+        stats.cube_slices += 1
+    return f
+
+
+def slice_bin_cubes(items, stats: PlanStats | None = None) -> list[Factor]:
+    """Batched :func:`slice_bin_cube`: ``items`` is a list of
+    (cube_factor, dim, masks, group_by); returns the sliced factors in
+    order."""
+    out = [_slice(cube, dim, masks, gb) for cube, dim, masks, gb in items]
+    if stats is not None:
+        stats.cube_slices += len(items)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -343,7 +415,9 @@ def _level_plan_parts(ring: sr.Semiring, group_statics: tuple) -> tuple:
     rowwise stage (gather ⊗ σ) one after another, at their own sizes, so no
     padding is needed; every kernel-route member of every group then
     contributes its ``(seg_idx, slab, num_segments)`` to ONE
-    ``level_aggregate`` launch.  Other members ⊕-reduce with plain torch.
+    ``level_aggregate`` launch — or to several, in member order, when the
+    launch's padded operands would pass ``ROWWISE_MAX_ELEMS``.  Other
+    members ⊕-reduce with plain torch.
     """
     parts = []
     for (rel_attrs, doms, in_canon, pred_attrs, out_canon, n, member_dims) in group_statics:
@@ -358,9 +432,18 @@ def _level_plan_parts(ring: sr.Semiring, group_statics: tuple) -> tuple:
     op = ring.kernel_segment_op
 
     def lfn(groups_args):
-        fused_items: list = []
-        fused_slots: list = []
         results: list = [[None] * len(members) for members, _, _ in parts]
+        pending: list = []     # kernel-route members waiting for the next launch
+        rows = width = 0       # their row count and widest slab
+
+        def launch():
+            items = [(seg_idx, slab, meta.total) for _, _, _, seg_idx, slab, meta in pending]
+            for (g, b, rv, _, _, meta), agg in zip(pending,
+                                                   seg_ops.level_aggregate(items, op=op)):
+                finalize = parts[g][0][b][2]
+                results[g][b] = finalize(_unstack(agg, rv, meta.total, meta.carried_dims))
+            pending.clear()
+
         for g, ((members, use_kernel, n), args) in enumerate(zip(parts, groups_args)):
             vals_list, in_fields_list, in_idx, pred_masks_list, pred_codes, seg_idx = args
             for b, (fn, rowwise, _, meta) in enumerate(members):
@@ -370,13 +453,18 @@ def _level_plan_parts(ring: sr.Semiring, group_statics: tuple) -> tuple:
                     continue
                 rv = rowwise(vals_list[b], in_fields_list[b], in_idx,
                              pred_masks_list[b], pred_codes)
-                fused_items.append((seg_idx, _slab(rv, n), meta.total))
-                fused_slots.append((g, b, rv))
-        if fused_items:
-            for (g, b, rv), agg in zip(fused_slots,
-                                       seg_ops.level_aggregate(fused_items, op=op)):
-                _, _, finalize, meta = parts[g][0][b]
-                results[g][b] = finalize(_unstack(agg, rv, meta.total, meta.carried_dims))
+                slab = _slab(rv, n)
+                # the launch's operands are the members' slabs concatenated and
+                # padded to the widest: past ROWWISE_MAX_ELEMS, launch what is
+                # pending first
+                w = max(width, slab.shape[1])
+                if pending and (rows + n) * w > ROWWISE_MAX_ELEMS:
+                    launch()
+                    rows, w = 0, slab.shape[1]
+                pending.append((g, b, rv, seg_idx, slab, meta))
+                rows, width = rows + n, w
+        if pending:
+            launch()
         return tuple(tuple(r) for r in results)
 
     return lfn, group_kernel, fused_messages

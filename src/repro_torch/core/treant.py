@@ -157,6 +157,8 @@ class Treant:
         # per-relation thresholds learned from the observed delete mix
         self.compaction_policy = CompactionPolicy()
         self.ingest = IngestStats()
+        # attached TreantServer (repro_torch.serve), surfaced in cache_stats
+        self._server = None
 
     def _new_engine(self, ring: sr.Semiring) -> CJTEngine:
         return CJTEngine(
@@ -347,11 +349,21 @@ class Treant:
         # ---- commit point: all latest pointers advance under ONE watermark
         self.catalog.commit({d.relation: d.new_version for d in deltas})
         self.ingest.version_bumps += len(deltas)
-        # re-queue the sessions' bumped current queries: a changed digest
-        # preempts exactly the stale parked calibration, an unchanged one
-        # keeps its position and progress
+        # selective invalidation: only prefetched results and bin cubes whose
+        # query can see an updated relation are stale (their digests can
+        # never be served again); entries on disjoint dimensions keep stable
+        # digests and stay servable.  Then re-queue the sessions' bumped
+        # current queries: a changed digest preempts exactly the stale parked
+        # calibration, an unchanged one keeps its position and progress
         changed = [d.relation for d in deltas]
+        if self._server is not None:
+            self._server._on_commit(changed)
         for sess in self._sessions.values():
+            sess._prefetched = {
+                k: e for k, e in sess._prefetched.items()
+                if not any(self._sees(e.query, r) for r in changed)
+            }
+            sess.invalidate_bin_cubes(changed)
             for viz, q in sess._current.items():
                 engine = self.engine_for(q.ring_name, q.measure)
                 dep = deprioritized and not engine.is_calibrated(q)
@@ -473,7 +485,13 @@ class Treant:
             "sessions": len(self._sessions),
             "watermark": self.catalog.watermark,
             "ingest": ingest,
+            # bin cubes parked across all sessions (core/predictive.py)
+            "bin_cubes": sum(len(s._bin_cubes) for s in self._sessions.values()),
+            "bin_cube_bytes": sum(s.bin_cube_bytes for s in self._sessions.values()),
+            "bin_cube_hits": sum(s.bin_cube_hits for s in self._sessions.values()),
         }
+        if self._server is not None:
+            out["serve"] = self._server.stats()
         # plan counters over the primary AND sibling-ring engines
         caches = [e.plans for e in self._engines.values() if e.plans is not None]
         if caches:

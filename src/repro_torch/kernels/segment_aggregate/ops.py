@@ -88,8 +88,16 @@ def level_aggregate(items, op: str = "sum") -> list[torch.Tensor]:
     [0, g_j), ``values`` (n_j, v_j).  Local ids shift by the running segment
     offset so the messages' outputs are disjoint; values are padded to the
     common width with the ⊕-identity.  Returns the per-item (g_j, v_j) outputs.
+    On the CPU the plain version reduces each item on its own (no padding).
     """
     assert items, "level_aggregate of zero messages"
+    if items[0][0].device.type == "cpu":
+        return [segment_aggregate_ref(codes, values.to(torch.float32), g, op)
+                for codes, values, g in items]
+    if len(items) == 1:  # nothing to shift, pad or concatenate
+        codes, values, g = items[0]
+        return [level_segment_aggregate(codes.to(torch.int32).contiguous(),
+                                        values.to(torch.float32).contiguous(), g, op)]
     ident = IDENTITY[op]
     v_max = max(v.shape[1] for _, v, _ in items)
     all_codes, all_vals, spans = [], [], []

@@ -21,11 +21,13 @@ def segment_aggregate_ref(codes: torch.Tensor, values: torch.Tensor, num_segment
     also the accuracy yardstick for the kernels' float32 atomic sums."""
     values = values.to(torch.float32)
     keep = (codes >= 0) & (codes < num_segments)
-    codes, values = codes[keep].long(), values[keep]
+    if not bool(keep.all()):
+        codes, values = codes[keep], values[keep]
+    codes = codes.long()
     shape = (num_segments,) + tuple(values.shape[1:])
     if op == "sum":
         out = torch.zeros(shape, dtype=torch.float64, device=values.device)
-        return out.index_put_((codes,), values.double(), accumulate=True).float()
+        return out.index_add_(0, codes, values.double()).float()
     out = torch.full(shape, IDENTITY[op], dtype=torch.float32, device=values.device)
     idx = codes.reshape((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
     reduce = "amin" if op == "min" else "amax"

@@ -441,3 +441,111 @@ def test_cuda_dense_role_update_launches_semiring_contract_and_matches_cpu(cuda)
             assert torch.equal(g.factor.field.cpu(), c.factor.field)
         else:
             torch.testing.assert_close(g.factor.field.cpu(), c.factor.field, rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# think-time bin cubes and the serving tier
+# ---------------------------------------------------------------------------
+
+def _flight_spec():
+    from repro_torch.core import DashboardSpec, VizSpec
+
+    return DashboardSpec(vizzes=tuple(
+        VizSpec(f"by_{g}", measure=None, ring="sum", group_by=(g,))
+        for g in ("airport_state", "month", "carrier_group", "dow")
+    ) + (VizSpec("state_by_size", measure=None, ring="sum",
+                 group_by=("airport_state", "airport_size")),))
+
+
+@pytest.mark.parametrize("ring", ["sum", "tropical_max", "moments"])
+def test_cuda_cube_slices_match_cpu(cuda, ring):
+    """A γ∪{dim} bin cube built on the card and sliced under several σ masks
+    (range, IN-list, none) equals the same cube and slices on the CPU
+    (integer COUNT-valued cells: exact; MOMENTS rtol 1e-5)."""
+    from repro_torch.core import plans
+
+    masks = [np.arange(12) >= 3, np.isin(np.arange(12), [0, 5, 11])]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cat = schema.flight(n_flights=20_000)
+        t = Treant(cat, ring=sr.get(ring), device=dev)
+        measure = None if ring == "sum" else ("Flights", "dep_delay")
+        q = Query.make(cat, ring=ring, measure=measure,
+                       group_by=("airport_state", "month"))
+        cube = t.engine_for(q.ring_name, q.measure).execute(q)[0]
+        out[dev] = plans.slice_bin_cubes(
+            [(cube, "month", masks, ("airport_state",)),
+             (cube, "month", masks[1:], ("airport_state",)),
+             (cube, "month", [], ("airport_state",))])
+    for g, c in zip(out["cuda"], out["cpu"]):
+        assert g.attrs == c.attrs
+        for gl, cl in zip(sr.leaves(g.field), sr.leaves(c.field)):
+            if ring == "tropical_max":
+                assert torch.equal(gl.cpu(), cl)
+            else:
+                torch.testing.assert_close(gl.cpu(), cl, rtol=1e-5, atol=0)
+
+
+def test_cuda_four_session_storm_matches_cpu(cuda):
+    """Four served sessions drag a brush on the card, with a predictive
+    think-time policy between rounds: every read equals the same storm on
+    the CPU bit for bit (COUNT-valued sums), with equal serving counters,
+    and the segment kernels launched."""
+    from repro_torch.core import PredictiveThinkTime, SetFilter
+    from repro_torch.serve import TreantServer
+
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        cat = schema.flight(n_flights=20_000)
+        t = Treant(cat, ring=sr.SUM, device=dev)
+        server = TreantServer(t, policy=PredictiveThinkTime(prefetch_k=2))
+        handles = [server.open_session(_flight_spec(), name=f"s{i}") for i in range(4)]
+        ops.reset_launches()
+        for rnd in range(3):
+            for step in range(3):
+                for i, h in enumerate(handles):
+                    lo = (5 * i + 7 * rnd + step) % 48
+                    h.submit(SetFilter("airport_state", lo=lo, hi=lo + 2 + rnd,
+                                       source="by_airport_state"))
+            while server.queue_depth:
+                server.step()
+            server.idle()
+        launches = dict(ops.LAUNCHES)
+        reads = {(h.id, v): h.read(v).factor.field.cpu() for h in handles for v in h.session.vizzes}
+        st = server.stats()
+        runs[dev] = (reads, {k: st[k] for k in ("events_processed", "coalesced_events",
+                                                "cross_session_batch_width", "dedup_hits",
+                                                "pool_cube_hits", "shared_prefetch_hits")},
+                     launches)
+    (creads, cst, _), (greads, gst, glaunches) = runs["cpu"], runs["cuda"]
+    assert gst == cst and gst["cross_session_batch_width"] > 1
+    assert glaunches["segment_aggregate"] > 0 and glaunches["level_segment_aggregate"] > 0
+    for key, g in greads.items():
+        assert torch.equal(g, creads[key]), key
+
+
+def test_cuda_split_level_launch_matches_one_launch_and_cpu(cuda, monkeypatch):
+    """A fused level launch split over several launches (padded operands
+    past ``plans.ROWWISE_MAX_ELEMS``) gives, on the card, the same messages
+    bit for bit as one launch and as the CPU (COUNT-valued sums)."""
+    from repro_torch.core import plans
+
+    def run(dev):
+        cat = schema.flight(n_flights=20_000)
+        t = Treant(cat, ring=sr.SUM, device=dev, use_plans=True)
+        q = Query.make(cat, ring="sum", group_by=("airport_state", "month", "carrier_group"))
+        eng = t.engine_for(q.ring_name, q.measure)
+        ops.reset_launches()
+        eng.calibrate(q)
+        out = [eng.execute(q.with_group_by(*g))[0].field.cpu()
+               for g in (("airport_state", "month", "carrier_group"), ("dow",),
+                         ("airport_size", "delay_bucket"))]
+        return out, ops.LAUNCHES["level_segment_aggregate"]
+
+    one, one_launches = run("cuda")
+    cpu, _ = run("cpu")
+    monkeypatch.setattr(plans, "ROWWISE_MAX_ELEMS", 1 << 16)
+    split, split_launches = run("cuda")
+    assert split_launches > one_launches > 0
+    for a, b, c in zip(one, split, cpu):
+        assert torch.equal(a, b) and torch.equal(b, c)
