@@ -105,7 +105,35 @@ CUDA toolkit.  Phases:
     with every segment-kernel launch held bit for bit against its plain
     version must give the same reads, and the storm at
     300,000 flights and 16 sessions must equal the CPU.  Launch counts join
-    the kernel records (``launches_explore``, ``launches_serve``).
+    the kernel records (``launches_explore``, ``launches_serve``);
+14. ML phase (Fig 18): ``schema.favorita`` at Kaggle's Favorita widths (54
+    stores, 4,100 items, 1,684 dates) with 8M sales;
+    ``examples/ml_augmentation.py``'s model (k = 11): ``fit``,
+    ``calibrate``, all 30 ``favorita_augmentations(n_per_key=10)`` through
+    ``fit_augmented`` and ``fit_unfactorized_baseline`` for the first of
+    each key.  Prints the fit and calibrate times, per-key candidate times
+    and messages, the peak device memory.  At most one computed message per
+    candidate, none for a repeated key; no kernel launch (the covariance
+    ring reduces in plain torch).  The base element (c, s, Q) must be within
+    its float32 sum bound of float64 numpy sums of the same join; R² and
+    weights against a float64 numpy fit, and augmented R² against the cold
+    baseline and numpy, within the reference test's tolerances or the
+    bound carried through the solve, whichever is wider; the drive at
+    60,000 sales must equal the CPU;
+15. cube phase (Fig 24/25): ``build_cube`` over phase 12's catalog, dims
+    (carrier_group, airport_state, month, dow), COUNT, h = 3, pivot k = 0,
+    1, 2 on fresh engines, and ``naive_cube_cost`` once.  Prints calibrate
+    against total and worst per-cuboid query time, store bytes and messages
+    per k.  Every cuboid must equal a numpy ``bincount`` and roll up to the
+    apex; the cubes again with every segment-kernel launch held bit for bit
+    against its plain version; the cubes at 60,000 flights must equal the
+    CPU (``launches_ml``, ``launches_cube`` join the kernel records);
+16. unfused phase: ``open_session`` of five COUNT and SUM vizzes on the
+    slice's catalog (Opp amounts rounded to integers, so float sums are
+    exact), fused and with ``fuse_level_kernel=False``: bit-equal answers,
+    no fused level launch and at least as many calibration dispatches when
+    unfused, and ``level_segment_aggregate`` launched by
+    ``run_message_batch`` (``launches_unfused``).
 
 Two times go with every kernel: ``ms``, wrapper calls back to back between
 CUDA events (what the main path pays, host cost included), and
@@ -126,8 +154,10 @@ import dataclasses
 import gc
 import json
 import statistics
+import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -2192,6 +2222,542 @@ def serve_phase(torch, np, K, L, schema, cat, report: dict) -> dict:
     return dict(launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: factorized ML over the Favorita join (Fig 18)
+# ---------------------------------------------------------------------------
+
+# Kaggle's Corporación Favorita sales table at its published widths (54
+# stores, 4,100 items, 1,684 dates); its 125,497,040 sales are cut to 8M:
+# examples/ml_augmentation.py's features give k = 11, 133 float32 per row of
+# the covariance lift (66.8 GB at the full table)
+ML_SALES = 8_000_000
+ML_CPU_SALES = 60_000
+ML_WIDTHS = dict(n_stores=54, n_items=4_100, n_dates=1_684)
+ML_AUG_PER_KEY = 10
+ML_R2_TOL = 1e-3                   # the reference test's R² tolerance against numpy
+ML_COLD_TOL = 1e-4                 # ... and against the cold baseline
+
+
+def ml_features(M, well_posed: bool = False) -> list:
+    """``examples/ml_augmentation.py``'s features (unit_sales, one-hot store
+    type and perishable: with the intercept, the two one-hot blocks are
+    collinear), or numeric ones only (unit_sales, item_weight): a model whose
+    normal equations do not rest on the ridge alone."""
+    if well_posed:
+        return [M.FeatureSpec("Sales", "unit_sales"), M.FeatureSpec("Items", "item_weight")]
+    return [M.FeatureSpec("Sales", "unit_sales"),
+            M.FeatureSpec("Stores", "store_type", categorical=True),
+            M.FeatureSpec("Items", "perishable", categorical=True)]
+
+
+def ml_model(M, cat, device: str, well_posed: bool = False):
+    return M.FactorizedLinearRegression(cat, ml_features(M, well_posed),
+                                        M.FeatureSpec("Trans", "transactions"), device=device)
+
+
+def per_sale(np, cat, rel_name: str, column: str, measure: bool):
+    """A column of ``rel_name`` carried to every sale through the join."""
+    sales, rel = cat.get("Sales"), cat.get(rel_name)
+    vals = rel.measures[column] if measure else rel.codes[column]
+    if rel_name == "Sales":
+        return vals
+    keys = [a for a in rel.attrs if a in sales.attrs]
+    doms = [cat.domains()[a] for a in keys]
+    lut = np.zeros(int(np.prod(doms)), dtype=np.float64 if measure else np.int64)
+    lut[np.ravel_multi_index([rel.codes[a] for a in keys], doms)] = vals
+    return lut[np.ravel_multi_index([sales.codes[a] for a in keys], doms)]
+
+
+def ml_design(np, model, cat, aug=None):
+    """The join's design matrix in float64 on the host (one row per sale,
+    ``tests/test_ml_cube.py::_numpy_fit``'s construction), in the model's slot
+    layout: intercept, features, augmentation slot, target."""
+    n = cat.get("Sales").num_rows
+    X = np.zeros((n, model.k))
+    X[:, model.slot_of["__intercept__"][0]] = 1.0
+    for f in model.features:
+        lo = model.slot_of[f.tag][0]
+        if f.categorical:
+            X[np.arange(n), lo + per_sale(np, cat, f.relation, f.column, False)] = 1.0
+        else:
+            X[:, lo] = per_sale(np, cat, f.relation, f.column, True)
+    if aug is not None:
+        X[:, model.slot_of["__aug__"][0]] = aug.measures["v"][cat.get("Sales").codes[aug.attrs[0]]]
+    X[:, model.slot_of["__target__"][0]] = per_sale(np, cat, model.target.relation,
+                                                    model.target.column, True)
+    return X
+
+
+def r2_of(np, model, X, w, with_aug: bool) -> float:
+    """R² of weights ``w`` on the float64 design ``X``."""
+    y = X[:, model.slot_of["__target__"][0]]
+    sse = float(((X[:, model._feature_slots(with_aug)] @ w - y) ** 2).sum())
+    return 1.0 - sse / float(((y - y.mean()) ** 2).sum())
+
+
+def numpy_fit(np, model, X, with_aug: bool) -> tuple:
+    """Ridge normal equations in float64 (``_numpy_fit``): weights, R²."""
+    A = X[:, model._feature_slots(with_aug)]
+    y = X[:, model.slot_of["__target__"][0]]
+    w = np.linalg.solve(A.T @ A + model.ridge * np.eye(A.shape[1]), A.T @ y)
+    return w, r2_of(np, model, X, w, with_aug)
+
+
+def element64(np, X) -> tuple:
+    """The join's covariance element (c, s, Q) in float64."""
+    return (np.float64(X.shape[0]), X.sum(0), X.T @ X)
+
+
+def sum_bound(np, X) -> tuple:
+    """Per-entry rounding bound of the card's float32 element over the
+    design ``X``: a sum of n terms in any order is within λ·√n·u of the sum
+    of their absolute values (u = 2^-24, λ = ``AUDIT_LAMBDA``; the
+    probabilistic bound phase 12's audit uses).  Entries whose terms are all
+    0 or 1 (count, intercept, one-hots) are integers below 2^24, exact in
+    float32 in any order: their bound is 0."""
+    n = X.shape[0]
+    d = AUDIT_LAMBDA * float(np.sqrt(n)) * 2.0 ** -24
+    c, s, q = element64(np, np.abs(X))
+    exact = np.all((X == 0.0) | (X == 1.0), axis=0) & (n < 2 ** 24)
+    return (0.0 if n < 2 ** 24 else d * c, np.where(exact, 0.0, d * s),
+            np.where(exact[:, None] & exact[None, :], 0.0, d * q))
+
+
+def check_element(np, got, X, what: str) -> list[float]:
+    """The card's element against float64 sums of the same join, each entry
+    within its ``sum_bound``; returns the largest relative errors of c, s, Q."""
+    errs = []
+    for g, want, b, name in zip(got, element64(np, X), sum_bound(np, X), ("c", "s", "Q")):
+        d = np.abs(g.double().numpy() - want)
+        check(bool((d <= b).all()), f"{what}: element {name} off its float32 bound: "
+              f"max |err| - bound {float((d - b).max())}")
+        errs.append(float((d / np.maximum(np.abs(want), 1e-300)).max()))
+    return errs
+
+
+def solve_from(torch, model, el, with_aug: bool):
+    """``model._solve`` on a float64 element: (R², weights)."""
+    r = model._solve(tuple(torch.as_tensor(x, dtype=torch.float64) for x in el), with_aug, None)
+    return r.r2, r.weights
+
+
+def propagated_tol(np, torch, model, X, with_aug: bool) -> tuple:
+    """First-order bound of the fit's error from the element's rounding:
+    Σ over entries of |f(el + bound_e) − f(el)| for f = R² and each weight
+    (Q's symmetric pairs move together, as the card computes both alike)."""
+    el, (bc, bs, bq) = element64(np, X), sum_bound(np, X)
+    r0, w0 = solve_from(torch, model, el, with_aug)
+    tol_r2, tol_w = 0.0, np.zeros_like(w0)
+    c, s, q = el
+    moves = [(c + bc, s, q)]
+    for i in np.flatnonzero(bs):
+        s2 = s.copy()
+        s2[i] += bs[i]
+        moves.append((c, s2, q))
+    for i, j in zip(*np.nonzero(np.triu(bq))):
+        q2 = q.copy()
+        q2[i, j] += bq[i, j]
+        q2[j, i] = q2[i, j]
+        moves.append((c, s, q2))
+    for el2 in moves:
+        r, w = solve_from(torch, model, el2, with_aug)
+        tol_r2 += abs(r - r0)
+        tol_w = tol_w + np.abs(w - w0)
+    return tol_r2, tol_w
+
+
+def ml_drive(torch, M, cat, augs, device: str, well_posed: bool = False,
+             all_candidates: bool = True) -> dict:
+    """Fig 18 on one device: the base fit, calibration, every candidate of
+    ``augs`` (or the first of each key) through ``fit_augmented``, and the
+    cold baseline of the first candidate of each key.  Times end in a device
+    sync (the solve reads the element back)."""
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = ml_model(M, cat, device, well_posed)
+    t0 = time.perf_counter()
+    base = model.fit()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    element = tuple(leaf.cpu() for leaf in model.engine.execute(model._base_query())[0].field)
+    t0 = time.perf_counter()
+    cal = model.calibrate()
+    if cuda:
+        torch.cuda.synchronize()
+    cal_ms = (time.perf_counter() - t0) * 1e3
+    cands, cold, seen, solved = [], {}, set(), []
+    real_solve = model._solve
+
+    def solve(element, with_aug, stats):  # keeps each candidate's element for the host checks
+        solved.append(tuple(x.detach().cpu() for x in element))
+        return real_solve(element, with_aug, stats)
+
+    model._solve = solve
+    try:
+        for a in augs:
+            key = a.attrs[0]
+            if key in seen and not all_candidates:
+                continue
+            t0 = time.perf_counter()
+            r = model.fit_augmented(a)
+            cands.append(dict(name=a.name, key=key, ms=(time.perf_counter() - t0) * 1e3,
+                              r2=r.r2, weights=r.weights, element=solved[-1],
+                              computed=r.stats.messages_computed,
+                              reused=r.stats.messages_reused, repeat=key in seen))
+            seen.add(key)
+    finally:
+        del model._solve
+    for a in augs:
+        if a.attrs[0] in cold:
+            continue
+        t0 = time.perf_counter()
+        r = model.fit_unfactorized_baseline(a)
+        cold[a.attrs[0]] = dict(name=a.name, ms=(time.perf_counter() - t0) * 1e3, r2=r.r2,
+                                computed=r.stats.messages_computed)
+    return dict(model=model, base=base, element=element, fit_ms=fit_ms, cal_ms=cal_ms,
+                cal_computed=cal.messages_computed, cands=cands, cold=cold,
+                peak_mb=torch.cuda.max_memory_allocated() / 2**20 if cuda else None)
+
+
+def ml_fit_checks(np, torch, rec: dict, cat, augs) -> dict:
+    """The fit of ``rec``'s model against float64 numpy on the host.  Held
+    (``ok``): the base R² and each first-of-key candidate's within the
+    reference test's 1e-3 of numpy's, each candidate's within 1e-4 of its
+    cold baseline, and the weights through the float64 objective (the
+    card's weights on the float64 design reach numpy's R² within 1e-3).
+    Each candidate's element is held to its float32 bound (``check_element``,
+    which fails the phase).  Reported only: the element's bound carried
+    through the solve (``propagated_tol``) and the weights side by side."""
+    model, base = rec["model"], rec["base"]
+    X = ml_design(np, model, cat)
+    w64, r2_64 = numpy_fit(np, model, X, with_aug=False)
+    tol_r2, tol_w = propagated_tol(np, torch, model, X, with_aug=False)
+    out = dict(r2=base.r2, numpy_r2=r2_64, weights_r2=r2_of(np, model, X, base.weights, False),
+               weights=base.weights.tolist(), numpy_weights=w64.tolist(),
+               propagated_r2=tol_r2, propagated_weights=tol_w.tolist(), augmented=[])
+    out["ok"] = (abs(base.r2 - r2_64) <= ML_R2_TOL
+                 and abs(out["weights_r2"] - r2_64) <= ML_R2_TOL)
+    for c in (c for c in rec["cands"] if not c["repeat"]):
+        a = next(x for x in augs if x.name == c["name"])
+        Xa = ml_design(np, model, cat, aug=a)
+        errs = check_element(np, c["element"], Xa, f"ml {c['name']}")
+        tol_a, _ = propagated_tol(np, torch, model, Xa, with_aug=True)
+        _, r2_a64 = numpy_fit(np, model, Xa, with_aug=True)
+        row = dict(name=c["name"], r2=c["r2"], cold_r2=rec["cold"][c["key"]]["r2"],
+                   numpy_r2=r2_a64, weights_r2=r2_of(np, model, Xa, c["weights"], True),
+                   propagated_r2=tol_a, element_max_rel_err=errs)
+        row["ok"] = (abs(c["r2"] - row["cold_r2"]) <= ML_COLD_TOL
+                     and abs(c["r2"] - r2_a64) <= ML_R2_TOL
+                     and abs(row["weights_r2"] - r2_a64) <= ML_R2_TOL)
+        out["augmented"].append(row)
+    return out
+
+
+def print_fit(label: str, fit: dict) -> None:
+    print(f"{label}: base R² {fit['r2']:.6f} against numpy's {fit['numpy_r2']:.6f} (|err| "
+          f"{abs(fit['r2'] - fit['numpy_r2']):.3g}, held at {ML_R2_TOL:g}; the element's bound "
+          f"through the solve {fit['propagated_r2']:.3g}); the weights reach R² "
+          f"{fit['weights_r2']:.6f} on the float64 design; weights "
+          f"{[round(w, 4) for w in fit['weights']]} against "
+          f"{[round(w, 4) for w in fit['numpy_weights']]}", flush=True)
+    for r in fit["augmented"]:
+        print(f"{label}: {r['name']}: R² {r['r2']:.6f}, cold baseline {r['cold_r2']:.6f} (|err| "
+              f"{abs(r['r2'] - r['cold_r2']):.3g}, held at {ML_COLD_TOL:g}), numpy "
+              f"{r['numpy_r2']:.6f} (|err| {abs(r['r2'] - r['numpy_r2']):.3g}, held at "
+              f"{ML_R2_TOL:g}; the element's bound through the solve {r['propagated_r2']:.3g}); "
+              f"its weights reach R² {r['weights_r2']:.6f} on the float64 design; element "
+              f"within its float32 bound (max relative err s {r['element_max_rel_err'][1]:.3g}, "
+              f"Q {r['element_max_rel_err'][2]:.3g})", flush=True)
+
+
+def ml_phase(torch, np, K, M, schema, report: dict) -> dict:
+    gc.collect()
+    torch.cuda.empty_cache()
+    cat = schema.favorita(n_sales=ML_SALES, **ML_WIDTHS)
+    augs = schema.favorita_augmentations(cat, n_per_key=ML_AUG_PER_KEY)
+    reset_launches(K)
+    t0 = time.perf_counter()
+    rec = ml_drive(torch, M, cat, augs, "cuda")
+    drive_s = time.perf_counter() - t0
+    launches = read_launches(K)
+    model, n = rec["model"], cat.get("Sales").num_rows
+    print(f"ml: {n} sales (row bucket {cat.get('Sales').row_bucket}), k = {model.k}; base fit "
+          f"{rec['fit_ms']:.1f} ms, calibrate {rec['cal_ms']:.1f} ms "
+          f"({rec['cal_ms'] / rec['fit_ms']:.2f} x the fit, {rec['cal_computed']} messages); "
+          f"peak device memory {rec['peak_mb']:.1f} MiB; launches {launches} "
+          f"(drive {drive_s:.1f} s)", flush=True)
+    check(not any(launches.values()),
+          f"ml: the covariance ring launched a kernel {launches} (its plain path has none)")
+    by_key: dict = {}
+    for c in rec["cands"]:
+        by_key.setdefault(c["key"], []).append(c)
+        check(c["computed"] == 0 if c["repeat"] else c["computed"] <= 1,
+              f"ml: candidate {c['name']} computed {c['computed']} messages")
+    for key, cs in by_key.items():
+        ms = [c["ms"] for c in cs]
+        print(f"ml: {len(cs)} {key}-keyed candidates: first {ms[0]:.2f} ms "
+              f"({cs[0]['computed']} message), the rest median {statistics.median(ms[1:]):.2f} "
+              f"ms, max {max(ms[1:]):.2f} ms ({sum(c['computed'] for c in cs[1:])} messages); "
+              f"cold baseline {rec['cold'][key]['ms']:.1f} ms "
+              f"({rec['cold'][key]['computed']} messages)", flush=True)
+    t0 = time.perf_counter()
+    errs = check_element(np, rec["element"], ml_design(np, model, cat), "ml")
+    print(f"ml: the element is within its float32 bound of float64 sums (max relative err c "
+          f"{errs[0]:.3g}, s {errs[1]:.3g}, Q {errs[2]:.3g}; λ·√n·u = "
+          f"{AUDIT_LAMBDA * n ** 0.5 * 2 ** -24:.3g})", flush=True)
+    # the example's features are collinear: the fit rests on the ridge alone,
+    # and the float32 rounding of the target's sums decides it at this size
+    # (in both packages), so it is reported, not held; a well-posed model on
+    # the same join is held to numpy
+    example = ml_fit_checks(np, torch, rec, cat, augs)
+    print_fit("ml (example's collinear features, reported)", example)
+    wp = ml_drive(torch, M, cat, augs, "cuda", well_posed=True, all_candidates=False)
+    check_element(np, wp["element"], ml_design(np, wp["model"], cat), "ml well-posed")
+    held = ml_fit_checks(np, torch, wp, cat, augs)
+    print_fit("ml (numeric features, held)", held)
+    check(held["ok"] and all(r["ok"] for r in held["augmented"]),
+          "ml: the well-posed fit disagrees with numpy or its cold baseline past its tolerance")
+    host_s = time.perf_counter() - t0
+    # the same drive at 60,000 sales on the card and on the CPU
+    t0 = time.perf_counter()
+    small = schema.favorita(n_sales=ML_CPU_SALES, **ML_WIDTHS)
+    small_augs = schema.favorita_augmentations(small, n_per_key=ML_AUG_PER_KEY)
+    sg = ml_drive(torch, M, small, small_augs, "cuda")
+    sc = ml_drive(torch, M, small, small_augs, "cpu")
+    cpu_s = time.perf_counter() - t0
+    X_s = ml_design(np, sc["model"], small)
+    b2 = tuple(2 * b for b in sum_bound(np, X_s))
+    for g, c, b in zip(sg["element"], sc["element"], b2):
+        check(bool((np.abs(g.double().numpy() - c.double().numpy()) <= b).all()),
+              f"ml at {ML_CPU_SALES} sales: cuda and CPU elements differ past the bound")
+    check(abs(sg["base"].r2 - sc["base"].r2) <= ML_COLD_TOL,
+          f"ml at {ML_CPU_SALES} sales: R² {sg['base'].r2} on cuda, {sc['base'].r2} on the CPU")
+    counts = [[(c["computed"], c["reused"]) for c in r["cands"]] for r in (sg, sc)]
+    check(counts[0] == counts[1], f"ml at {ML_CPU_SALES} sales: message counts differ")
+    print(f"ml: the drive at {ML_CPU_SALES} sales gives the same message counts, elements "
+          f"within their bound and R² {sg['base'].r2:.6f} / {sc['base'].r2:.6f} on cuda and on "
+          f"the CPU ({cpu_s:.1f} s; host checks {host_s:.1f} s)", flush=True)
+    report["ml"] = dict(
+        n_sales=n, k=model.k, fit_ms=rec["fit_ms"], calibrate_ms=rec["cal_ms"],
+        calibrate_messages=rec["cal_computed"], peak_mb=rec["peak_mb"], launches=launches,
+        candidates=[{k: v for k, v in c.items() if k not in ("weights", "element")}
+                    for c in rec["cands"]], cold=rec["cold"], element_max_rel_err=errs,
+        example_fit=example, held_fit=held, cpu_sales=ML_CPU_SALES, cpu_s=cpu_s,
+    )
+    # where the phase's device time goes: one cold fit under the profiler
+    profile_phase(torch, "ml", lambda: model.fit_unfactorized_baseline(), report)
+    return dict(launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the data cube over the exploration catalog (Fig 24/25)
+# ---------------------------------------------------------------------------
+
+CUBE_DIMS = ("carrier_group", "airport_state", "month", "dow")  # bench_cube's dims
+CUBE_H = 3
+CUBE_PIVOTS = (0, 1, 2)
+CUBE_CPU_FLIGHTS = 300_000        # the CPU comparison: benchmarks/bench_cube.py's size
+
+
+def host_rss_mib() -> float:
+    """This process's resident set in MiB (``/proc/self/statm``)."""
+    try:
+        pages = int(Path("/proc/self/statm").read_text().split()[1])
+    except (OSError, IndexError, ValueError):
+        return float("nan")
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+@contextlib.contextmanager
+def host_peak(out: dict, every_s: float = 0.005):
+    """Sample the resident set every ``every_s`` while the block runs and
+    put the largest sample (MiB) in ``out["peak_mib"]``; a spike shorter
+    than the interval can be missed."""
+    samples = [host_rss_mib()]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(every_s):
+            samples.append(host_rss_mib())
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield
+    finally:
+        done.set()
+        th.join()
+        samples.append(host_rss_mib())
+        out["peak_mib"] = max(samples)
+
+
+def cube_brute_force(np, cat) -> dict:
+    """Every dim's code per flight, for numpy ``bincount`` cuboids."""
+    fl, car, ap, dt = (cat.get(n) for n in ("Flights", "Carrier", "Airport", "Dates"))
+    return {
+        "carrier_group": car.codes["carrier_group"][fl.codes["carrier_id"]].astype(np.int64),
+        "airport_state": ap.codes["airport_state"][fl.codes["airport_id"]].astype(np.int64),
+        "month": dt.codes["month"][fl.codes["date_id"]].astype(np.int64),
+        "dow": dt.codes["dow"][fl.codes["date_id"]].astype(np.int64),
+    }
+
+
+def cube_drive(torch, L, cat, device: str) -> dict:
+    """``build_cube`` at every pivot k on fresh engines and stores."""
+    jt = L.jt_from_catalog(cat)
+    base = L.Query.make(cat, ring="count")
+    out = {}
+    for k in CUBE_PIVOTS:
+        eng = L.CJTEngine(jt, cat, L.sr.COUNT, store=L.MessageStore(), device=device)
+        out[k] = L.build_cube(eng, base, CUBE_DIMS, h=CUBE_H, pivot_k=k)
+    return out
+
+
+def cube_phase(torch, np, K, L, cat, report: dict) -> dict:
+    gc.collect()
+    torch.cuda.empty_cache()
+    jt = L.jt_from_catalog(cat)
+    base = L.Query.make(cat, ring="count")
+    warm = L.CJTEngine(jt, cat, L.sr.COUNT, store=L.MessageStore(), device="cuda")
+    L.build_cube(warm, base, CUBE_DIMS[:2], h=1, pivot_k=0)  # first launches and uploads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(K)
+    reps = cube_drive(torch, L, cat, "cuda")
+    launches = read_launches(K)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for name in SEGMENT:
+        check(launches[name] > 0, f"cube: {name} never launched")
+    codes = cube_brute_force(np, cat)
+    n = cat.get("Flights").num_rows
+    doms = cat.domains()
+    for k, rep in reps.items():
+        worst = max(rep.query_s.items(), key=lambda kv: kv[1])
+        print(f"cube k={k}: calibrate {rep.calibrate_s * 1e3:.1f} ms, {len(rep.cuboids)} "
+              f"cuboids {rep.total_query_s * 1e3:.1f} ms in all, worst "
+              f"{worst[1] * 1e3:.2f} ms ({'+'.join(worst[0]) or 'apex'}); store "
+              f"{rep.store_bytes} B, {rep.messages_computed} messages", flush=True)
+        for combo, f in rep.cuboids.items():
+            got = f.field.cpu().double().numpy()
+            check(float(got.sum()) == n, f"cube k={k} {combo} does not roll up to the apex")
+            if combo:
+                flat = np.ravel_multi_index([codes[a] for a in combo],
+                                            [doms[a] for a in combo])
+                want = np.bincount(flat, minlength=int(np.prod([doms[a] for a in combo])))
+                check(np.array_equal(got.reshape(-1), want),
+                      f"cube k={k} {combo} differs from the numpy brute force")
+    t0 = time.perf_counter()
+    _, naive = L.naive_cube_cost(
+        lambda: L.CJTEngine(jt, cat, L.sr.COUNT, store=L.MessageStore(), device="cuda"),
+        base, CUBE_DIMS, CUBE_H)
+    naive_s = time.perf_counter() - t0
+    print(f"cube: naive (a cold store per cuboid) {sum(naive.values()) * 1e3:.1f} ms over "
+          f"{len(naive)} cuboids ({naive_s:.1f} s wall); launches {launches}; peak device "
+          f"memory {peak:.1f} MiB; every cuboid equals a numpy bincount", flush=True)
+    audit: dict = {}
+    t0 = time.perf_counter()
+    with kernel_audit(torch, K, L, audit, exact=True):
+        cube_drive(torch, L, cat, "cuda")
+    print_audit("cube", audit, time.perf_counter() - t0)
+    for name in SEGMENT:
+        check(audit[name]["checked"] > 0, f"cube: no {name} launch was held")
+    t0 = time.perf_counter()
+    small = L.flight(n_flights=CUBE_CPU_FLIGHTS)
+    gpu_s = cube_drive(torch, L, small, "cuda")
+    gc.collect()
+    host = dict(before_mib=host_rss_mib())
+    with host_peak(host):
+        cpu_s = cube_drive(torch, L, small, "cpu")
+    for k in CUBE_PIVOTS:
+        g, c = gpu_s[k], cpu_s[k]
+        check((g.messages_computed, g.store_bytes) == (c.messages_computed, c.store_bytes),
+              f"cube k={k} at {CUBE_CPU_FLIGHTS} flights: counters differ")
+        for combo, f in g.cuboids.items():
+            check(torch.equal(f.field.cpu(), c.cuboids[combo].field),
+                  f"cube k={k} {combo} at {CUBE_CPU_FLIGHTS} flights: cuda and CPU differ")
+    print(f"cube: the cubes at {CUBE_CPU_FLIGHTS} flights equal the CPU bit for bit with "
+          f"equal counters ({time.perf_counter() - t0:.1f} s; resident set {host['before_mib']:.1f} "
+          f"MiB before the CPU drive, {host['peak_mib']:.1f} MiB at its sampled peak)",
+          flush=True)
+    report["cube"] = dict(
+        dims=CUBE_DIMS, h=CUBE_H, launches=launches, peak_mb=peak, cpu_flights=CUBE_CPU_FLIGHTS,
+        cpu_host_rss_mib=host, naive_ms=
+        {"+".join(c) or "apex": s * 1e3 for c, s in naive.items()}, audit=audit,
+        pivots={k: dict(calibrate_ms=r.calibrate_s * 1e3, total_query_ms=r.total_query_s * 1e3,
+                        query_ms={"+".join(c) or "apex": s * 1e3 for c, s in r.query_s.items()},
+                        store_bytes=r.store_bytes, messages_computed=r.messages_computed)
+                for k, r in reps.items()},
+    )
+    return dict(launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: offline calibration with unfused levels
+# ---------------------------------------------------------------------------
+
+def unfused_spec(L):
+    """COUNT and SUM vizzes over the slice's join: their union-carry passes
+    share level edges, so a level has groups of several messages."""
+    m = ("Opp", "amount")
+    V = L.VizSpec
+    return L.DashboardSpec(vizzes=(
+        V("sum_by_stage", measure=m, ring="sum", group_by=("stage",)),
+        V("sum_by_state", measure=m, ring="sum", group_by=("state",)),
+        V("sum_by_camp", measure=m, ring="sum", group_by=("camp_type",)),
+        V("count_by_title", ring="count", group_by=("title",)),
+        V("count_by_role", ring="count", group_by=("role_name",)),
+    ))
+
+
+def unfused_phase(torch, np, K, L, cat, report: dict) -> dict:
+    """``open_session`` (offline calibration) on the slice's catalog, fused
+    and with ``fuse_level_kernel=False``.  Opp's amounts are rounded to
+    integers (``amount / 10000``, total under 2^24), so every float sum is
+    exact in any order and both answers must agree bit for bit."""
+    opp = cat.get("Opp")
+    rounded = np.round(opp.measures["amount"] / 10_000.0).astype(np.float32)
+    check(float(rounded.astype(np.float64).sum()) < 2 ** 24,
+          "unfused: the rounded amounts' total is not exact in float32")
+    icat = L.Catalog([opp.with_version("int_amount", measures={"amount": rounded})]
+                     + [cat.get(n) for n in cat.names() if n != "Opp"])
+    # an untimed open first: the rounded Opp is a new version, and its codes
+    # upload once for both timed runs
+    L.Treant(icat, ring=L.sr.SUM, device="cuda").open_session(unfused_spec(L)).close()
+    out, launches = {}, {}
+    for fuse in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launches(K)
+        t = L.Treant(icat, ring=L.sr.SUM, fuse_level_kernel=fuse, device="cuda")
+        t0 = time.perf_counter()
+        sess = t.open_session(unfused_spec(L), name=f"fuse_{fuse}")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[fuse] = read_launches(K)
+        answers = {v: sess.read(v).factor.field.cpu() for v in sess.spec.names}
+        out[fuse] = dict(ms=ms, plans=t.cache_stats()["plans"], answers=answers)
+        sess.close()
+    f, u = out[True], out[False]
+    for viz, a in f["answers"].items():
+        check(torch.equal(a, u["answers"][viz]), f"unfused: {viz} differs from the fused run")
+    check(u["plans"]["fused_level_launches"] == 0, "unfused: a fused level launch ran")
+    check(u["plans"]["calibration_dispatches"] >= f["plans"]["calibration_dispatches"],
+          "unfused: fewer dispatches than the fused run")
+    check(launches[False]["level_segment_aggregate"] > 0,
+          "unfused: run_message_batch never launched level_segment_aggregate")
+    print(f"unfused: open_session {f['ms']:.1f} ms fused, {u['ms']:.1f} ms unfused; "
+          f"calibration dispatches {f['plans']['calibration_dispatches']} / "
+          f"{u['plans']['calibration_dispatches']}, fused level launches "
+          f"{f['plans']['fused_level_launches']} / {u['plans']['fused_level_launches']}, "
+          f"level-batched groups {u['plans']['level_batched_execs']} (widest "
+          f"{u['plans']['level_batch_width']}); launches {launches[True]} / {launches[False]}; "
+          f"{len(f['answers'])} answers equal bit for bit", flush=True)
+    report["unfused"] = dict(open_ms={"fused": f["ms"], "unfused": u["ms"]},
+                             plans={"fused": f["plans"], "unfused": u["plans"]},
+                             launches={"fused": launches[True], "unfused": launches[False]})
+    return dict(launches=launches[False])
+
+
 def main() -> int:
     try:
         import torch
@@ -2213,9 +2779,10 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core import (
-        CJTEngine, ClearFilter, DashboardSpec, Drill, FixedKPrefetch, MessageStore, PlanCache,
-        PredictiveThinkTime, Query, Session, SetFilter, SwapMeasure, ToggleRelation, Treant, Undo,
-        VizSpec, insert_empty_bag, jt_from_catalog,
+        CJTEngine, ClearFilter, DashboardSpec, Drill, FactorizedLinearRegression, FeatureSpec,
+        FixedKPrefetch, MessageStore, PlanCache, PredictiveThinkTime, Query, Session, SetFilter,
+        SwapMeasure, ToggleRelation, Treant, Undo, VizSpec, build_cube, insert_empty_bag,
+        jt_from_catalog, naive_cube_cost,
     )
     from repro_torch.core import semiring as sr
     from repro_torch.kernels import build, launch
@@ -2228,7 +2795,7 @@ def main() -> int:
     from repro_torch.kernels.tropical_contract import kernel as tc_kernel
     from repro_torch.kernels.tropical_contract import ops as tc_ops
     from repro_torch.kernels.tropical_contract import ref as tc_ref
-    from repro_torch.relational import StreamBuffer, schema
+    from repro_torch.relational import Catalog, StreamBuffer, schema
     from repro_torch.relational.relation import mask_in
     from repro_torch.relational.sql import parse
     from repro_torch.serve import ServeStats, TreantServer
@@ -2245,7 +2812,11 @@ def main() -> int:
         ToggleRelation=ToggleRelation, Undo=Undo, sr=sr, jt_from_catalog=jt_from_catalog,
         StreamBuffer=StreamBuffer, Session=Session, FixedKPrefetch=FixedKPrefetch,
         PredictiveThinkTime=PredictiveThinkTime, TreantServer=TreantServer, ServeStats=ServeStats,
+        Query=Query, Catalog=Catalog, build_cube=build_cube, naive_cube_cost=naive_cube_cost,
+        flight=schema.flight,
     )
+    M = types.SimpleNamespace(FactorizedLinearRegression=FactorizedLinearRegression,
+                              FeatureSpec=FeatureSpec)
     report: dict = {}
     started = time.perf_counter()
     try:
@@ -2277,12 +2848,23 @@ def main() -> int:
         print("exploration with think-time (phase 12):", flush=True)
         explore = explore_phase(torch, np, K, L, schema, report)
         print("serving tier (phase 13):", flush=True)
-        served = serve_phase(torch, np, K, L, schema, explore.pop("cat"), report)
+        flights = explore.pop("cat")
+        served = serve_phase(torch, np, K, L, schema, flights, report)
+        print("factorized ML on Favorita (phase 14):", flush=True)
+        ml = ml_phase(torch, np, K, M, schema, report)
+        print("data cube over the flights (phase 15):", flush=True)
+        cube = cube_phase(torch, np, K, L, flights, report)
+        del flights
+        print("offline calibration with unfused levels (phase 16):", flush=True)
+        unfused = unfused_phase(torch, np, K, L, sliced["cat"], report)
         for r in records:
             r["launches_session"] = live["launches_session"][r["name"]]
             r["launches_ingest"] = live["launches_ingest"][r["name"]]
             r["launches_explore"] = explore["launches"][r["name"]]
             r["launches_serve"] = served["launches"][r["name"]]
+            r["launches_ml"] = ml["launches"][r["name"]]
+            r["launches_cube"] = cube["launches"][r["name"]]
+            r["launches_unfused"] = unfused["launches"][r["name"]]
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -59,6 +59,13 @@ _EXPORTS = {
     "IngestStats": "treant",
     "Treant": "treant",
     "UpdateResult": "treant",
+    "FactorizedLinearRegression": "ml",
+    "FeatureSpec": "ml",
+    "FitResult": "ml",
+    "build_cube": "cube",
+    "naive_cube_cost": "cube",
+    "CubeReport": "cube",
+    "attach_relation": "hypertree",
 }
 
 __all__ = sorted(_EXPORTS)

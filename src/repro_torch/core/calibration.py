@@ -35,8 +35,11 @@ tropical_contract kernels for two-factor matrix products).
 - ``apply_delta`` (delta calibration) maintains a query's cached messages
   across a data update: the n−1 messages directed away from the updated bag
   become old ⊕ ΔY under bumped signatures.
-
-Custom lifts are not ported yet.
+- Custom ``lifts`` (a relation name → a function of the relation giving its
+  per-row ring elements, as ``core/ml.py``'s covariance lifts) replace the
+  default annotation lift; the lift function is part of every lift and
+  lifted-factor cache key, so engines sharing a plan cache never serve each
+  other's lifts.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ import dataclasses
 import hashlib
 import time
 from collections import OrderedDict
-from typing import Iterable, Sequence
+from typing import Callable, Iterable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -57,19 +60,18 @@ from . import semiring as sr
 from .factor import Factor, contract
 from .hypertree import JTree
 from .plans import (
-    UNION_BUDGET,
     AbsorbItem,
     PlanCache,
     absorb_batch_key,
+    batch_calibration_default,
+    calibration_union_budget,
     expand_rows_field,
+    fuse_level_default,
     resolve_device,
+    sparse_batch_elems,
+    use_plans_default,
 )
 from .query import Query
-
-
-# widest rows·width volume one batched absorption launch carries; wider
-# groups split into chunks of at least 2 members (the reference's default)
-SPARSE_BATCH_ELEMS = 1 << 18
 
 
 def _h(*parts: str) -> str:
@@ -528,10 +530,16 @@ class CJTEngine:
     ``device`` (default ``cuda``; raises without a card unless ``"cpu"`` is
     passed) holds the lifts, codes and messages.  Relations of at most
     ``dense_rows_threshold`` rows are densified (dense contraction path);
-    bigger ones take the sparse segment path.  ``use_plans=False`` runs the
-    plain reference contractions (``_sparse_reference``, ``factor.contract``)
-    instead of the plan cache; ``batch_calibration=False`` calibrates edge
-    by edge.  Custom ``lifts`` are not ported (ROADMAP Queue 1 item 16).
+    bigger ones take the sparse segment path.  ``lifts`` maps a relation
+    name to a function ``rel -> per-row field`` that replaces the default
+    annotation lift.  ``use_plans=False`` runs the plain reference
+    contractions (``_sparse_reference``, ``factor.contract``) instead of the
+    plan cache; ``batch_calibration=False`` calibrates edge by edge;
+    ``fuse_level_kernel=False`` runs a calibration level group by group
+    (``PlanCache.run_message_batch``) instead of in one call.  The three
+    default to ``None``: the env knobs ``REPRO_USE_PLANS``,
+    ``REPRO_BATCH_CALIBRATION`` and ``REPRO_FUSE_LEVEL_KERNEL`` (on unless
+    set to 0); an explicit argument wins.
     """
 
     def __init__(
@@ -539,21 +547,25 @@ class CJTEngine:
         jt: JTree,
         catalog: Catalog,
         ring: sr.Semiring,
-        lifts=None,
+        lifts: Mapping[str, Callable[[Relation], sr.Field]] | None = None,
         store: MessageStore | None = None,
         dense_rows_threshold: int = 0,
-        use_plans: bool = True,
+        use_plans: bool | None = None,
         plan_cache: PlanCache | None = None,
-        batch_calibration: bool = True,
+        batch_calibration: bool | None = None,
+        fuse_level_kernel: bool | None = None,
         device: torch.device | str | None = None,
     ):
-        if lifts:
-            raise NotImplementedError(
-                "custom lifts are not ported yet (ROADMAP Queue 1 item 16)"
-            )
+        if use_plans is None:
+            use_plans = use_plans_default()
+        if batch_calibration is None:
+            batch_calibration = batch_calibration_default()
+        if fuse_level_kernel is None:
+            fuse_level_kernel = fuse_level_default()
         self.jt = jt
         self.catalog = catalog
         self.ring = ring
+        self.lifts = dict(lifts or {})
         self.store = store if store is not None else MessageStore()
         self.dense_rows_threshold = dense_rows_threshold
         if plan_cache is not None:
@@ -566,10 +578,16 @@ class CJTEngine:
             self.device = plan_cache.device
         else:
             self.device = resolve_device(device)
-        self.plans = (plan_cache or PlanCache(ring, self.device)) if use_plans else None
-        # level-batched calibration is inert without plans (per-edge loop)
+        # an empty cache is falsy (``__len__``): test for None, or a shared
+        # cache handed to a fresh engine would be dropped for a private one
+        if not use_plans:
+            self.plans = None
+        else:
+            self.plans = plan_cache if plan_cache is not None else PlanCache(ring, self.device)
+        # level-batched calibration is inert without plans (per-edge loop);
+        # level fusion is inert without level batching
         self.batch_calibration = batch_calibration
-        self.union_budget = UNION_BUDGET
+        self.fuse_level_kernel = fuse_level_kernel
         # Prop-2 signature memo, LRU-bounded: keyed by (query digest, edge)
         self._sig_memo: LRU = LRU(capacity=8192)
         # σ-placement memo: placement is a pure function of (σ digests, R̄, versions)
@@ -718,10 +736,17 @@ class CJTEngine:
             return self._sparse_bag(q, rels[0], incoming, preds, out_attrs, stats)
         return self._dense_bag(q, rels, incoming, preds, out_attrs, stats)
 
+    def _lift_id(self, rel_name: str):
+        """Cache-key component naming the lift that produces a relation's
+        rows: None for the default lift, the custom function object itself
+        otherwise (a shared PlanCache must not serve engine A's lift to
+        engine B; keying by the object keeps it alive, so no id reuse)."""
+        return self.lifts.get(rel_name)
+
     def _lift(self, q: Query, rel: Relation) -> sr.Field:
         if self.plans is not None:
             measure = q.measure[1] if q.measure and q.measure[0] == rel.name else None
-            key = (rel.key, self.ring.name, measure, q.lift_tag)
+            key = (rel.key, self.ring.name, measure, q.lift_tag, self._lift_id(rel.name))
             return self.plans.lift_cached(
                 key, lambda: self._pad_lift(self._lift_impl(q, rel), rel)
             )
@@ -741,6 +766,8 @@ class CJTEngine:
         return vals
 
     def _lift_impl(self, q: Query, rel: Relation) -> sr.Field:
+        if rel.name in self.lifts:
+            return self.lifts[rel.name](rel)
         measure = q.measure[1] if q.measure and q.measure[0] == rel.name else None
         return lift_rows(rel, self.ring, measure, self.device)
 
@@ -749,6 +776,11 @@ class CJTEngine:
         are enabled."""
         ring = self.ring
         measure = q.measure[1] if q.measure and q.measure[0] == rel.name else None
+        if rel.name in self.lifts:
+            if self.plans is None:
+                return self._dense_lifted(q, rel)
+            key = ("lifted", rel.key, ring.name, q.lift_tag, self._lift_id(rel.name))
+            return self.plans.factor_cached(key, lambda: self._dense_lifted(q, rel))
         if self.plans is None:
             return rel.to_factor(ring, measure, self.device)
         key = ("base", rel.key, ring.name, measure)
@@ -769,6 +801,18 @@ class CJTEngine:
             i = next(i for i, f in enumerate(factors) if p.attr in f.attrs)
             factors[i] = factors[i].select(p.attr, torch.as_tensor(p.mask, device=self.device))
         return contract(factors, tuple(a for a in out_attrs if a in avail), ring)
+
+    def _dense_lifted(self, q: Query, rel: Relation) -> Factor:
+        """A custom-lifted relation densified: its lifted rows ⊕-reduced at
+        their own codes (no incoming message, no σ)."""
+        vals = self._lift(q, rel)
+        if self.plans is not None:
+            return self.plans.run_sparse(self.catalog, rel, vals, [], (), tuple(rel.attrs))
+        idx, total = rel.flat_codes(rel.attrs)
+        field = self.ring.segment_reduce(vals, torch.as_tensor(idx, device=self.device), total)
+        shape = tuple(rel.domains[a] for a in rel.attrs)
+        field = sr.field_map(lambda leaf: leaf.reshape(shape + tuple(leaf.shape[1:])), field)
+        return Factor(tuple(rel.attrs), field, self.ring)
 
     def _sparse_bag(self, q, rel: Relation, incoming, preds, out_attrs, stats=None) -> Factor:
         """Factorized sparse path: gather ⊗ rowwise, segment-⊕ to out_attrs."""
@@ -987,12 +1031,14 @@ class CJTEngine:
     def _absorb_chunks(self, members: list[tuple[int, AbsorbItem]]
                        ) -> list[list[tuple[int, AbsorbItem]]]:
         """Split one batch group into chunks of at most
-        ``SPARSE_BATCH_ELEMS`` rows·width, keeping at least 2 members per
-        chunk so siblings still share a launch at any fact-table size."""
-        if len(members) <= 2:
+        ``sparse_batch_elems()`` rows·width (0: one chunk), keeping at least
+        2 members per chunk so siblings still share a launch at any
+        fact-table size."""
+        budget = sparse_batch_elems()
+        if budget <= 0 or len(members) <= 2:
             return [members]
         rows = max(members[0][1].rel.num_rows, 1)
-        cap = max(2, SPARSE_BATCH_ELEMS // rows)
+        cap = max(2, budget // rows)
         return [members[j:j + cap] for j in range(0, len(members), cap)]
 
     def calibrate(self, q: Query, root: str | None = None, pin: bool = False,
@@ -1119,8 +1165,12 @@ class CJTEngine:
         a unit: duplicates across sibling plans (equal Prop-2 signature + γ)
         materialize once, and ALL remaining messages go to ONE
         ``PlanCache.run_level`` call whose kernel-route messages share one
-        ``level_aggregate`` launch.  Returns the number of edges advanced; a
-        partially-stepped level (``plan.offset``) is finished first.
+        ``level_aggregate`` launch.  With ``fuse_level_kernel`` off, each
+        batch group of the level is its own call instead: one
+        ``PlanCache.run_message_batch`` (one launch) per group of several
+        messages, ``run_sparse`` for a group of one.  Returns the number of
+        edges advanced; a partially-stepped level (``plan.offset``) is
+        finished first.
         """
         with self.store.inflight():
             return self._run_level_inflight(plans, stats_list, tags)
@@ -1176,13 +1226,8 @@ class CJTEngine:
         for rec in deferred:
             groups.setdefault(absorb_batch_key(self.ring, rec[5]), []).append(rec)
         group_list = list(groups.values())
-        fs_groups = self.plans.run_level(
-            self.catalog,
-            [[m[5] for m in members] for members in group_list],
-            [[stats_list[m[0]] for m in members] for members in group_list],
-        )
-        self._count_dispatches(stats_list[group_list[0][0][0]], 1)
-        for members, fs in zip(group_list, fs_groups):
+
+        def store_group(members, fs):
             for (i, u, v, base, gamma, item), f in zip(members, fs):
                 st = stats_list[i]
                 tag = tags[i] if tags is not None else None
@@ -1193,6 +1238,29 @@ class CJTEngine:
                     self.store.put(base, gamma, f, cost=cost)
                 st.messages_computed += 1
                 st.recomputed_edges.append((u, v))
+
+        if self.fuse_level_kernel:
+            fs_groups = self.plans.run_level(
+                self.catalog,
+                [[m[5] for m in members] for members in group_list],
+                [[stats_list[m[0]] for m in members] for members in group_list],
+            )
+            self._count_dispatches(stats_list[group_list[0][0][0]], 1)
+            for members, fs in zip(group_list, fs_groups):
+                store_group(members, fs)
+            return n
+        for members in group_list:
+            sts = [stats_list[m[0]] for m in members]
+            if len(members) == 1:
+                item = members[0][5]
+                fs = [self.plans.run_sparse(
+                    self.catalog, item.rel, item.vals, list(item.incoming),
+                    list(item.preds), item.out_attrs, sts[0],
+                )]
+            else:
+                fs = self.plans.run_message_batch(self.catalog, [m[5] for m in members], sts)
+            self._count_dispatches(sts[0], 1)
+            store_group(members, fs)
         return n
 
     def calibrate_levels_iter(self, q: Query, root: str | None = None, pin: bool = False,
@@ -1212,8 +1280,10 @@ class CJTEngine:
         One message carrying γ₁∪γ₂ serves both queries: Prop-2 base
         signatures are γ-independent and the store narrows a wider cached
         message on lookup (Σ-compensation).  Greedy first-fit, bounded by
-        ``union_budget`` on the γ-domain product of the widest message.
+        ``calibration_union_budget()`` (read on every call) on the γ-domain
+        product of the widest message.
         """
+        budget = calibration_union_budget()
         slots: list[tuple[str, Query, tuple[str, ...]]] = []
         for q in queries:
             for j, (sk, rep, union) in enumerate(slots):
@@ -1221,7 +1291,7 @@ class CJTEngine:
                     continue
                 merged = tuple(dict.fromkeys(union + q.group_by))
                 lanes = int(np.prod([self.jt.domains.get(a, 1) for a in merged]))
-                if merged == union or lanes <= self.union_budget:
+                if merged == union or lanes <= budget:
                     slots[j] = (sk, rep, merged)
                     break
             else:

@@ -33,11 +33,13 @@ plan.  PyTorch runs eagerly, so nothing is traced or compiled here.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import costs as kernel_costs
 from repro_torch.kernels.launch import unit_strides
 from repro_torch.kernels.segment_aggregate import ops as seg_ops
 from repro_torch.kernels.semiring_contract import ops as sc_ops
@@ -48,18 +50,21 @@ from . import semiring as sr
 from .factor import Factor, contract
 
 
-# widest γ-domain product one union-carry calibration pass may carry: the
-# reference's static default (its committed profile lowers it to 128, a CPU
-# measurement that does not carry over to the card)
+# widest γ-domain product one union-carry calibration pass may carry when
+# neither the env nor the card's cost profile says otherwise (the
+# reference's static default)
 UNION_BUDGET = 512
 
 # A level launch concatenates its members' rowwise fields (rows × carried γ
 # lanes), padded to the widest.  Past ROWWISE_MAX_ELEMS elements (8 GiB of
 # float32, a tenth of an 80 GB card: the gathers and products around the
 # operands take a few times more) the level plan splits its members over
-# several level_segment_aggregate launches.  A member past it on its own
+# several level_segment_aggregate launches; a member past it on its own
 # still goes out in one launch (chip_smoke.py's serving phase has one: a
-# 336-lane calibration message over 2^23 rows, 11.3 GB of float32).
+# 336-lane calibration message over 2^23 rows, 11.3 GB of float32).  A
+# single contraction past it reduces its rows a block at a time and ⊕-adds
+# the partial aggregates (chip_smoke.py's cube phase: a 4,368-lane cuboid
+# over 2^23 flights would be 147 GB in one piece).
 ROWWISE_MAX_ELEMS = 1 << 31
 
 
@@ -71,6 +76,60 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def _env_flag(name: str) -> bool:
+    return os.environ.get(name, "1").lower() not in ("0", "false")
+
+
+def use_plans_default() -> bool:
+    """Env-gated default for the plan cache (``REPRO_USE_PLANS``; 0 runs the
+    plain reference contractions)."""
+    return _env_flag("REPRO_USE_PLANS")
+
+
+def batch_fanout_default() -> bool:
+    """Env-gated default for batched crossfilter fan-out
+    (``REPRO_BATCH_FANOUT``)."""
+    return _env_flag("REPRO_BATCH_FANOUT")
+
+
+def batch_calibration_default() -> bool:
+    """Env-gated default for level-batched calibration passes
+    (``REPRO_BATCH_CALIBRATION``).  When off — or when plans are off —
+    calibration degrades to the per-edge loop."""
+    return _env_flag("REPRO_BATCH_CALIBRATION")
+
+
+def fuse_level_default() -> bool:
+    """Env-gated default for level-fused launches (``REPRO_FUSE_LEVEL_KERNEL``).
+    When on — and plans plus level batching are on — every kernel-route
+    message of a calibration level shares one ``level_aggregate`` launch;
+    when off, each batch group of the level is its own call
+    (``PlanCache.run_message_batch``)."""
+    return _env_flag("REPRO_FUSE_LEVEL_KERNEL")
+
+
+def calibration_union_budget() -> int:
+    """Max product of γ domain sizes one union-carry calibration query may
+    accumulate: ``REPRO_CALIBRATION_UNION_BUDGET``, else the card's measured
+    knee from the cost profile (``kernels/costs.py``), else ``UNION_BUDGET``.
+    Read on every call, as the reference does."""
+    env = os.environ.get("REPRO_CALIBRATION_UNION_BUDGET")
+    if env is not None:
+        return int(env)
+    derived = kernel_costs.derived_union_budget()
+    return derived if derived is not None else UNION_BUDGET
+
+
+def sparse_batch_elems() -> int:
+    """Max rows·width volume one batched absorption launch may carry
+    (``REPRO_SPARSE_BATCH_ELEMS``; 0 = unbounded; the reference's default
+    2^18).  Wider groups split into chunks of at least 2 members."""
+    env = os.environ.get("REPRO_SPARSE_BATCH_ELEMS")
+    if env is not None:
+        return int(env)
+    return 1 << 18
 
 
 def expand_rows_field(field: sr.Field, have: Sequence[str], want: Sequence[str],
@@ -255,6 +314,7 @@ def _sparse_plan_parts(
     out_shape = tuple(doms[a] for a in local_out)
 
     def rowwise(vals, in_fields, in_idx, pred_masks, pred_codes):
+        rows = sr.leaves(vals)[0].shape[0]
         for (m_attrs, shared, extra, have, want), field, idx in zip(steps, in_fields, in_idx):
             mp = Factor(m_attrs, field, ring).project_to(shared + extra)
             dims = [doms[a] for a in shared]
@@ -265,7 +325,7 @@ def _sparse_plan_parts(
                 )
                 if shared:
                     return lead.index_select(0, idx)
-                return lead.expand((n,) + tuple(lead.shape[1:]))
+                return lead.expand((rows,) + tuple(lead.shape[1:]))
 
             g = sr.like(mp.field, [gather(leaf) for leaf in sr.leaves(mp.field)])
             vals = ring.mul(
@@ -278,7 +338,7 @@ def _sparse_plan_parts(
             for mask, codes in zip(pred_masks[1:], pred_codes[1:]):
                 rowm = rowm & mask[codes]
             vals = sr.like(vals, [
-                leaf.masked_fill(~rowm.reshape((n,) + (1,) * (leaf.dim() - 1)), z)
+                leaf.masked_fill(~rowm.reshape((rows,) + (1,) * (leaf.dim() - 1)), z)
                 for leaf, z in zip(sr.leaves(vals), ring.zero_values)
             ])
         return vals
@@ -287,13 +347,30 @@ def _sparse_plan_parts(
         field = sr.field_map(lambda leaf: leaf.reshape(out_shape + tuple(leaf.shape[1:])), field)
         return Factor(local_out + carried, field, ring).project_to(out_attrs)
 
-    def fn(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx):
+    lanes = int(np.prod(carried_dims)) if carried_dims else 1
+
+    def reduce(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx):
         vals = rowwise(vals, in_fields, in_idx, pred_masks, pred_codes)
         if use_kernel:
-            field = _unstack(seg_ops.aggregate_op(seg_idx, _slab(vals, n), total, op=op),
-                             vals, total, carried_dims)
-        else:
-            field = ring.segment_reduce(vals, seg_idx, total)
+            return _unstack(seg_ops.aggregate_op(seg_idx, _slab(vals, seg_idx.shape[0]), total,
+                                                 op=op), vals, total, carried_dims)
+        return ring.segment_reduce(vals, seg_idx, total)
+
+    def fn(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx):
+        # the rowwise field holds rows × carried lanes × the lift's elements
+        # per row: past ROWWISE_MAX_ELEMS, reduce a block of rows at a time
+        # and ⊕ the partial aggregates
+        per_row = lanes * sum(leaf[0].numel() for leaf in sr.leaves(vals))
+        step = max(1, ROWWISE_MAX_ELEMS // max(per_row, 1))
+        if step >= n:
+            return finalize(reduce(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx))
+        field = None
+        for lo in range(0, n, step):
+            rs = slice(lo, min(n, lo + step))
+            part = reduce(sr.field_map(lambda leaf: leaf[rs], vals), in_fields,
+                          tuple(None if i is None else i[rs] for i in in_idx), pred_masks,
+                          tuple(c[rs] for c in pred_codes), seg_idx[rs])
+            field = part if field is None else ring.add(field, part)
         return finalize(field)
 
     meta = _SparseMeta(total=total, carried_dims=carried_dims, use_kernel=use_kernel)
@@ -727,6 +804,27 @@ class PlanCache:
         ``level_aggregate`` launch.  Results are bit-identical to
         ``run_sparse`` per member on integer-valued data.
         """
+        return self._run_batch(catalog, items, stats_list, calibration=False)
+
+    def run_message_batch(
+        self,
+        catalog,
+        items: Sequence[AbsorbItem],
+        stats_list: Sequence | None = None,
+    ) -> list[Factor]:
+        """Execute one batch group of a calibration level as one call (the
+        unfused level path, ``fuse_level_kernel=False``).
+
+        A message Y(u→v) is the same bag contraction as an absorption with
+        ``out_attrs = separator ∪ γ-carry``, so this is
+        :meth:`run_sparse_batch`'s machinery with ``level_batched_*``
+        accounting instead of ``batched_*``: one ``level_aggregate`` launch
+        per group.
+        """
+        return self._run_batch(catalog, items, stats_list, calibration=True)
+
+    def _run_batch(self, catalog, items: Sequence[AbsorbItem], stats_list: Sequence | None,
+                   calibration: bool) -> list[Factor]:
         assert len(items) >= 2, "batch of one: use run_sparse"
         spec = self._group_spec(items, stats_list)
         entry = self._plans.get(spec.key)
@@ -736,16 +834,26 @@ class PlanCache:
             self._plans.put(spec.key, entry)
         (outs,) = entry.fn((self._group_args(catalog, spec),))
         width = len(spec.items)
-        self.stats.batched_execs += 1
-        self.stats.batched_absorptions += width
-        self.stats.batch_width = max(self.stats.batch_width, width)
+        if calibration:
+            self.stats.level_batched_execs += 1
+            self.stats.level_batched_messages += width
+            self.stats.level_batch_width = max(self.stats.level_batch_width, width)
+        else:
+            self.stats.batched_execs += 1
+            self.stats.batched_absorptions += width
+            self.stats.batch_width = max(self.stats.batch_width, width)
         results = []
         for it, f, stats in zip(spec.items, outs, spec.stats or [None] * width):
             # rename canonical placeholders back to the member's attrs
             results.append(Factor(it.out_attrs, f.field, self.ring))
             self._account(entry.uses_kernel, built, stats)
             built = False  # one plan build per batched call, not per member
-            if stats is not None:
+            if stats is None:
+                continue
+            if calibration:
+                stats.level_batched_execs += 1
+                stats.level_batch_width = max(stats.level_batch_width, width)
+            else:
                 stats.batched_absorptions += 1
                 stats.batch_width = max(stats.batch_width, width)
         # undo the member sort: caller expects its own member order

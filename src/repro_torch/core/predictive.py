@@ -27,7 +27,7 @@ a per-session :class:`BrushTrajectory`).
 Config: every think-time knob resolves here, once, into a typed
 :class:`ThinkTimeConfig` (env override wins, cached,
 ``reset_think_time_config()`` for tests).  The default cube cell budget is
-32 × the engine's union-carry budget (``plans.UNION_BUDGET`` = 512), because
+32 × the union-carry budget (``plans.calibration_union_budget()``), because
 a bin cube is a union-carry message set whose widest factor carries the
 γ∪{d} product.
 """
@@ -40,7 +40,7 @@ import time
 import warnings
 from typing import TYPE_CHECKING
 
-from .plans import UNION_BUDGET
+from .plans import UNION_BUDGET, calibration_union_budget
 from .query import Query
 
 if TYPE_CHECKING:  # pragma: no cover — cycle guard (dashboard imports us)
@@ -55,8 +55,9 @@ if TYPE_CHECKING:  # pragma: no cover — cycle guard (dashboard imports us)
 class ThinkTimeConfig:
     """All think-time/speculation knobs, resolved once with env overrides.
 
-    ``union_budget`` is the engine's union-carry budget
-    (``plans.UNION_BUDGET``, a constant 512 in this package);
+    ``union_budget`` is the resolved union-carry budget (env
+    ``REPRO_CALIBRATION_UNION_BUDGET`` → the card's cost profile → static
+    512; see ``plans.calibration_union_budget``);
     ``cube_cell_budget`` defaults to ``32 ×`` that budget because the widest
     factor a cube build materializes carries the γ∪{dim} domain product —
     the same quantity the union budget bounds for shared calibration passes,
@@ -70,7 +71,7 @@ class ThinkTimeConfig:
     cube_builds_per_idle: int = 4  # REPRO_BIN_CUBE_MAX_DIMS
     cube_capacity: int = 64        # REPRO_BIN_CUBE_CAPACITY (per session)
     cube_cell_budget: int = 16384  # REPRO_BIN_CUBE_CELLS (γ∪{dim} ∏ domains)
-    union_budget: int = UNION_BUDGET  # the engine's union-carry budget
+    union_budget: int = UNION_BUDGET  # resolved REPRO_CALIBRATION_UNION_BUDGET
 
 
 _UNSET = object()
@@ -98,7 +99,7 @@ def think_time_config(refresh: bool = False) -> ThinkTimeConfig:
     """The resolved (and cached) think-time config; env overrides win."""
     global _config_cache
     if refresh or _config_cache is _UNSET:
-        union = UNION_BUDGET
+        union = calibration_union_budget()
         _config_cache = ThinkTimeConfig(
             prefetch_capacity=_env_int("REPRO_PREFETCH_CAPACITY", 128),
             prefetch_k=_env_int("REPRO_PREFETCH_K", 2),

@@ -40,6 +40,8 @@ caller must pass ``device="cpu"``).
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Callable, Mapping
 
 import torch
 
@@ -56,7 +58,14 @@ from .dashboard import (
     VizSpec,
 )
 from .hypertree import JTree, jt_from_catalog
-from .plans import PlanStats, resolve_device
+from .plans import (
+    PlanStats,
+    batch_calibration_default,
+    batch_fanout_default,
+    fuse_level_default,
+    resolve_device,
+    use_plans_default,
+)
 from .predictive import DrainCalibration, ThinkTimeBudget, ThinkTimePolicy
 from .query import Query
 
@@ -64,6 +73,15 @@ __all__ = [
     "Treant", "InteractionResult", "UpdateResult", "FlushResult", "IngestStats",
     "ApplyResult", "DashboardSpec", "VizSpec", "Session", "ThinkTimeScheduler",
 ]
+
+
+def compaction_threshold_default() -> float:
+    """Tombstone fraction that triggers compaction at flush
+    (``REPRO_COMPACTION_THRESHOLD``, default 0.25; <= 0 disables)."""
+    try:
+        return float(os.environ.get("REPRO_COMPACTION_THRESHOLD", "0.25"))
+    except ValueError:  # pragma: no cover — malformed env
+        return 0.25
 
 
 @dataclasses.dataclass
@@ -110,10 +128,15 @@ class FlushResult:
 class Treant:
     """Dashboard accelerator managing CJTs over one join graph.
 
-    ``batch_fanout`` absorbs sibling vizzes of one event together
-    (``CJTEngine.execute_many``); ``compaction_threshold`` is the tombstone
-    fraction at which ``flush`` compacts a streamed relation (≤ 0: never),
-    adjusted per relation by ``compaction_policy``.
+    ``lifts`` are custom per-relation lifts, handed to every engine
+    (``CJTEngine``).  ``batch_fanout`` absorbs sibling vizzes of one event
+    together (``CJTEngine.execute_many``); ``compaction_threshold`` is the
+    tombstone fraction at which ``flush`` compacts a streamed relation (≤ 0:
+    never), adjusted per relation by ``compaction_policy``.  ``None``
+    resolves each knob from the env: ``REPRO_USE_PLANS``,
+    ``REPRO_BATCH_FANOUT``, ``REPRO_BATCH_CALIBRATION``,
+    ``REPRO_FUSE_LEVEL_KERNEL`` (on unless 0) and
+    ``REPRO_COMPACTION_THRESHOLD`` (0.25); an explicit argument wins.
     """
 
     def __init__(
@@ -121,24 +144,38 @@ class Treant:
         catalog: Catalog,
         ring: sr.Semiring = sr.SUM,
         jt: JTree | None = None,
+        lifts: Mapping[str, Callable] | None = None,
         max_cache_bytes: int | None = None,
         dense_rows_threshold: int = 0,
-        use_plans: bool = True,
-        batch_fanout: bool = True,
-        batch_calibration: bool = True,
-        compaction_threshold: float = 0.25,
+        use_plans: bool | None = None,
+        batch_fanout: bool | None = None,
+        batch_calibration: bool | None = None,
+        fuse_level_kernel: bool | None = None,
+        compaction_threshold: float | None = None,
         policy: ThinkTimePolicy | None = None,
         device: torch.device | str | None = None,
     ):
+        if use_plans is None:
+            use_plans = use_plans_default()
+        if batch_fanout is None:
+            batch_fanout = batch_fanout_default()
+        if batch_calibration is None:
+            batch_calibration = batch_calibration_default()
+        if fuse_level_kernel is None:
+            fuse_level_kernel = fuse_level_default()
+        if compaction_threshold is None:
+            compaction_threshold = compaction_threshold_default()
         self.device = resolve_device(device)
         self.catalog = catalog
         self.jt = jt or jt_from_catalog(catalog)
         self.store = MessageStore(max_bytes=max_cache_bytes)
+        self._lifts = dict(lifts or {})
         # relations of at most this many rows are densified (dense plans)
         self._dense_rows_threshold = dense_rows_threshold
         self._use_plans = use_plans
         self.batch_fanout = batch_fanout
         self.batch_calibration = batch_calibration
+        self.fuse_level_kernel = fuse_level_kernel
         self.engine = self._new_engine(ring)
         # ring name -> engine; siblings share the store (per-ring plan caches)
         self._engines: dict[str, CJTEngine] = {ring.name: self.engine}
@@ -162,9 +199,10 @@ class Treant:
 
     def _new_engine(self, ring: sr.Semiring) -> CJTEngine:
         return CJTEngine(
-            self.jt, self.catalog, ring, store=self.store,
+            self.jt, self.catalog, ring, lifts=self._lifts, store=self.store,
             dense_rows_threshold=self._dense_rows_threshold, use_plans=self._use_plans,
-            batch_calibration=self.batch_calibration, device=self.device,
+            batch_calibration=self.batch_calibration, fuse_level_kernel=self.fuse_level_kernel,
+            device=self.device,
         )
 
     # -- engines ---------------------------------------------------------------

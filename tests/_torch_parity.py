@@ -117,7 +117,10 @@ def assert_same_results(jax_results, port_results):
 
 @pytest.fixture(autouse=True)
 def same_union_budget(monkeypatch):
-    """The reference reads its union-carry budget from a CPU profile; the
-    port's is the static 512.  Parity tests that open sessions or calibrate
-    several queries pin the reference to 512 (import this fixture)."""
+    """Each package resolves its union-carry budget from its own cost
+    profile when ``REPRO_CALIBRATION_UNION_BUDGET`` is unset: the reference
+    from a CPU profile, the port from the H100 profile
+    (``repro_torch/kernels/h100_costs.json``).  Parity tests that open
+    sessions or calibrate several queries pin both packages to 512 through
+    the env, so both fuse the same union queries (import this fixture)."""
     monkeypatch.setenv("REPRO_CALIBRATION_UNION_BUDGET", "512")

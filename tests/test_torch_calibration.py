@@ -255,7 +255,6 @@ def test_calibrate_many_union_carry_matches_reference(cats, budget, monkeypatch)
     jcat, tcat = cats
     je = JEngine(j_jt(jcat), jcat, jsr.COUNT)
     te = CJTEngine(jt_from_catalog(tcat), tcat, tsr.COUNT, device="cpu")
-    te.union_budget = budget
     groups = [("camp_type",), ("title",), ("stage",), ("camp_type", "title")]
     jqs = [JQuery.make(jcat, ring="count", group_by=g) for g in groups]
     tqs = [Query.make(tcat, ring="count", group_by=g) for g in groups]

@@ -549,3 +549,92 @@ def test_cuda_split_level_launch_matches_one_launch_and_cpu(cuda, monkeypatch):
     assert split_launches > one_launches > 0
     for a, b, c in zip(one, split, cpu):
         assert torch.equal(a, b) and torch.equal(b, c)
+
+
+# float32 sum of n terms in any order: within λ·√n·u of the exact sum
+# (u = 2^-24, λ = 4; chip_smoke.py's audit tolerance, floor 1e-5)
+def _sum_rtol(n: int) -> float:
+    return max(1e-5, 4.0 * n ** 0.5 * 2.0 ** -24)
+
+
+@pytest.mark.parametrize("kernel", ["segment_aggregate", "level_segment_aggregate"])
+def test_cuda_float_segment_sums_repeat(cuda, kernel):
+    """One float SUM launch at a contended shape (2^23 gamma-valued rows into
+    30 segments), run twice on the same inputs: prints whether the two
+    outputs are bit-equal and their largest relative difference, and holds
+    both to the float64 plain version within the float32 sum bound (the
+    kernels add with atomics, so the order of a sum may change)."""
+    n, g = 1 << 23, 30
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    codes = torch.randint(0, g, (n,), device=cuda, dtype=torch.int32, generator=gen)
+    vals = torch.empty((n, 1), device=cuda).exponential_(generator=gen).mul_(100.0)
+
+    def run():
+        if kernel == "segment_aggregate":
+            return ops.aggregate_op(codes, vals, g, "sum")
+        return ops.level_aggregate([(codes, vals, g)], op="sum")[0]
+
+    before = ops.LAUNCHES[kernel]
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[kernel] == before + 2
+    want = segment_aggregate_ref(codes, vals, g, "sum")
+    rows = torch.bincount(codes.long(), minlength=g).max().item()
+    spread = ((a - b).abs() / want.abs()).max().item()
+    print(f"\nDETERMINISM {kernel}: n={n} G={g} bit-equal={torch.equal(a, b)} "
+          f"max relative difference of the repeats {spread:.3g} (bound {_sum_rtol(rows):.3g} "
+          f"for a segment of {rows} rows)")
+    for out in (a, b):
+        torch.testing.assert_close(out, want, rtol=_sum_rtol(rows), atol=0)
+
+
+def test_cuda_covariance_fit_and_augmentation_match_cpu(cuda):
+    """Factorized regression on ``cuda`` against the port on the CPU (the
+    covariance ring reduces in plain torch on both): the base element and
+    R², an augmentation's R² and every message count.  The weights are not
+    compared: the intercept and the one-hot blocks are collinear, so the
+    ridge alone pins them, and float sums in another order move them."""
+    from repro_torch.core import FactorizedLinearRegression, FeatureSpec
+
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        cat = schema.favorita(n_sales=8_000, n_stores=12, n_items=30, n_dates=20)
+        model = FactorizedLinearRegression(
+            cat, [FeatureSpec("Sales", "unit_sales"),
+                  FeatureSpec("Stores", "store_type", categorical=True),
+                  FeatureSpec("Items", "perishable", categorical=True)],
+            FeatureSpec("Trans", "transactions"), device=dev)
+        base = model.fit()
+        el = [leaf.cpu() for leaf in model.engine.execute(model._base_query())[0].field]
+        model.calibrate()
+        aug = schema.favorita_augmentations(cat, n_per_key=1)
+        res = [model.fit_augmented(a) for a in aug]
+        fits[dev] = (base, el, res)
+    (gb, gel, gres), (cb, cel, cres) = fits["cuda"], fits["cpu"]
+    for g, c in zip(gel, cel):
+        torch.testing.assert_close(g, c, rtol=_sum_rtol(8_000), atol=1e-3)
+    assert abs(gb.r2 - cb.r2) < 1e-5
+    for g, c in zip(gres, cres):
+        assert (g.stats.messages_computed, g.stats.messages_reused) == (
+            c.stats.messages_computed, c.stats.messages_reused)
+        assert g.stats.messages_computed <= 1 and abs(g.r2 - c.r2) < 1e-5
+
+
+def test_cuda_cube_matches_cpu(cuda):
+    """A COUNT cube (h = 2, pivot k = 1) on ``cuda``: the CPU's cuboids bit
+    for bit (integer counts), equal message counts and store bytes, and the
+    segment kernels launched."""
+    from repro_torch.core import CJTEngine, build_cube, jt_from_catalog
+
+    cat = schema.flight(n_flights=10_000)
+    reps = {}
+    ops.reset_launches()
+    for dev in ("cuda", "cpu"):
+        eng = CJTEngine(jt_from_catalog(cat), cat, sr.COUNT, device=dev)
+        reps[dev] = build_cube(eng, Query.make(cat, ring="count"),
+                               ("carrier_group", "month", "dow"), h=2, pivot_k=1)
+    assert ops.LAUNCHES["segment_aggregate"] > 0 and ops.LAUNCHES["level_segment_aggregate"] > 0
+    g, c = reps["cuda"], reps["cpu"]
+    assert (g.messages_computed, g.store_bytes) == (c.messages_computed, c.store_bytes)
+    for combo, f in c.cuboids.items():
+        assert torch.equal(g.cuboids[combo].field.cpu(), f.field)

@@ -364,11 +364,11 @@ def test_think_time_config_env_overrides(monkeypatch):
 
 
 def test_cube_cell_budget_derives_from_union_budget(monkeypatch):
-    """The reference derives its union budget from
-    ``REPRO_CALIBRATION_UNION_BUDGET``; the port's engines carry the constant
-    ``plans.UNION_BUDGET``, and the cube cell budget is 32 × the budget the
-    engines use in each package.  An explicit ``REPRO_BIN_CUBE_CELLS`` wins
-    in both."""
+    """Both packages derive their union budget from
+    ``REPRO_CALIBRATION_UNION_BUDGET`` (else their own cost profile), and the
+    cube cell budget is 32 × that budget.  The port's engines read the budget
+    on every union-carry pass, not once at construction.  An explicit
+    ``REPRO_BIN_CUBE_CELLS`` wins in both."""
     from repro_torch.core import plans
 
     monkeypatch.setenv("REPRO_CALIBRATION_UNION_BUDGET", "100")
@@ -377,10 +377,10 @@ def test_cube_cell_budget_derives_from_union_budget(monkeypatch):
         P.core.reset_think_time_config()
     jcfg, tcfg = J.core.think_time_config(), T.core.think_time_config()
     assert (jcfg.union_budget, jcfg.cube_cell_budget) == (100, 3200)
+    assert (tcfg.union_budget, tcfg.cube_cell_budget) == (100, 3200)
+    assert plans.calibration_union_budget() == 100
     cat, _ = catalog(T, "star", 1)
-    engine = treant(T, cat).engine
-    assert tcfg.union_budget == plans.UNION_BUDGET == engine.union_budget == 512
-    assert tcfg.cube_cell_budget == 32 * 512
+    assert not hasattr(treant(T, cat).engine, "union_budget")
     monkeypatch.setenv("REPRO_BIN_CUBE_CELLS", "50")
     for P in (J, T):
         P.core.reset_think_time_config()

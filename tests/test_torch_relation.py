@@ -183,6 +183,9 @@ def test_relational_imports_before_core_and_without_jax():
         "from repro_torch.kernels.tropical_contract import ops, kernel, ref\n"
         "from repro_torch.kernels import build\n"
         "import repro_torch.core.predictive\n"
+        "from repro_torch.core import FactorizedLinearRegression, FeatureSpec, FitResult\n"
+        "from repro_torch.core import build_cube, CubeReport, naive_cube_cost\n"
+        "from repro_torch.kernels import costs\n"
         "from repro_torch.serve import TreantServer, ServerSession, QueueFull, ServeStats\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'repro' or m.startswith('repro.')]\n"
