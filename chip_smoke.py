@@ -133,7 +133,21 @@ CUDA toolkit.  Phases:
     exact), fused and with ``fuse_level_kernel=False``: bit-equal answers,
     no fused level launch and at least as many calibration dispatches when
     unfused, and ``level_segment_aggregate`` launched by
-    ``run_message_batch`` (``launches_unfused``).
+    ``run_message_batch`` (``launches_unfused``);
+17. sharded phase, on phase 16's catalog: the same five vizzes opened and
+    one interaction under ``Treant(mesh=ShardMesh.virtual(k, "cuda"))`` for
+    k = 2 and 4 beside ``mesh=0``, then one 50,000-row Opp flush tick at
+    k = 4 and ``mesh=0``.  Answers bit-equal to ``mesh=0``, plan counters
+    equal but ``shard_execs`` (> 0), ``allreduce_bytes`` (equal to the bytes
+    the ⊕-folds carried) and ``shard_imbalance`` (its formula's worst
+    relation); synced times and peak device memory for k = 1, 2, 4, each
+    after an untimed warm open and interaction on a catalog of its own
+    (``launches_sharded``: the first 4-shard run's launches, counted from
+    0 after its warm-up); the k = 4 run again with every segment-kernel
+    launch held bit for bit against its plain version; ``open_session`` at
+    k = 1 and 4 under ``torch.profiler``; the domain-sharded
+    chain demo (r = 6, d = 4,096, 4 shards) against
+    ``calibrate_chain_reference`` at rtol 1e-4.
 
 Two times go with every kernel: ``ms``, wrapper calls back to back between
 CUDA events (what the main path pays, host cost included), and
@@ -2709,17 +2723,22 @@ def unfused_spec(L):
     ))
 
 
-def unfused_phase(torch, np, K, L, cat, report: dict) -> dict:
-    """``open_session`` (offline calibration) on the slice's catalog, fused
-    and with ``fuse_level_kernel=False``.  Opp's amounts are rounded to
-    integers (``amount / 10000``, total under 2^24), so every float sum is
-    exact in any order and both answers must agree bit for bit."""
+def int_amount_catalog(np, L, cat):
+    """The slice's catalog with Opp's amounts rounded to integers (``amount /
+    10000``, total under 2^24): every float sum over it is exact in any
+    order, so answers computed two ways must agree bit for bit."""
     opp = cat.get("Opp")
     rounded = np.round(opp.measures["amount"] / 10_000.0).astype(np.float32)
     check(float(rounded.astype(np.float64).sum()) < 2 ** 24,
-          "unfused: the rounded amounts' total is not exact in float32")
-    icat = L.Catalog([opp.with_version("int_amount", measures={"amount": rounded})]
+          "the rounded amounts' total is not exact in float32")
+    return L.Catalog([opp.with_version("int_amount", measures={"amount": rounded})]
                      + [cat.get(n) for n in cat.names() if n != "Opp"])
+
+
+def unfused_phase(torch, np, K, L, icat, report: dict) -> dict:
+    """``open_session`` (offline calibration) on the slice's catalog with
+    integer amounts (``int_amount_catalog``), fused and with
+    ``fuse_level_kernel=False``: both answers must agree bit for bit."""
     # an untimed open first: the rounded Opp is a new version, and its codes
     # upload once for both timed runs
     L.Treant(icat, ring=L.sr.SUM, device="cuda").open_session(unfused_spec(L)).close()
@@ -2758,6 +2777,256 @@ def unfused_phase(torch, np, K, L, cat, report: dict) -> dict:
     return dict(launches=launches[False])
 
 
+# ---------------------------------------------------------------------------
+# phase 17: sharded execution on virtual meshes of the one card
+# ---------------------------------------------------------------------------
+
+SHARD_WIDTHS = (1, 2, 4)           # 1: Treant(mesh=0), the unsharded run
+SHARD_ORDER = (1, 2, 4, 4, 2, 1)   # each width twice, in turns
+SHARD_TICK_ROWS = 50_000           # rows of the Opp flush tick
+SHARD_TICK_WIDTHS = (1, 4)
+CHAIN_R, CHAIN_D, CHAIN_SHARDS = 6, 4_096, 4
+SHARD_COUNTERS = ("shard_execs", "allreduce_bytes", "shard_imbalance")
+
+
+def shard_tick_rows(np, rel) -> tuple[dict, dict]:
+    """The tick's rows: uniform codes and integer amounts 0-3, so the sums
+    stay exact (checked against 2^24 after the tick)."""
+    rng = np.random.default_rng(17)
+    codes = {a: rng.integers(0, rel.domains[a], SHARD_TICK_ROWS).astype(np.int32)
+             for a in rel.attrs}
+    return codes, {"amount": rng.integers(0, 4, SHARD_TICK_ROWS).astype(np.float32)}
+
+
+@contextlib.contextmanager
+def folded_bytes(L, out: list):
+    """While the block runs, add to ``out`` the bytes of every ⊕-fold's
+    result (one partial's payload: what a collective of the fold carries)."""
+    real = L.dist.allreduce_field
+
+    def counting(partials, collective):
+        res = real(partials, collective)
+        stack, nbytes = [res], 0
+        while stack:
+            x = stack.pop()
+            if isinstance(x, (tuple, list)):
+                stack.extend(x)
+            elif x is not None:
+                nbytes += sum(t.numel() * t.element_size() for t in L.sr.leaves(x.field))
+        out.append(nbytes)
+        return res
+
+    L.dist.allreduce_field = counting
+    try:
+        yield
+    finally:
+        L.dist.allreduce_field = real
+
+
+def shard_event(L):
+    return L.SetFilter("state", values=(0, 1, 2, 3, 4), source="sum_by_state")
+
+
+def sharded_catalog(L, icat, k: int, device: str):
+    """A catalog of its own over ``icat``'s relations (a flush commits a new
+    Opp version) and the mesh of width k (``0`` for k = 1), after an untimed
+    open and interaction that upload the codes and lifts.  Its launches are
+    warm-up: the caller sets the counts to 0 after it."""
+    cat = L.Catalog([icat.get(n) for n in icat.names()])
+    mesh = L.ShardMesh.virtual(k, device) if k > 1 else 0
+    warm = L.Treant(cat, ring=L.sr.SUM, mesh=mesh, device=device).open_session(unfused_spec(L))
+    warm.apply(shard_event(L))
+    warm.close()
+    return cat, mesh
+
+
+def sharded_drive(torch, np, L, cat, mesh, k: int, device: str, tick: bool) -> dict:
+    """Phase 16's five vizzes opened, one interaction and (``tick``) one
+    50,000-row Opp flush under ``Treant(mesh=mesh)`` on ``cat`` (both from
+    ``sharded_catalog``; ``mesh`` is ``ShardMesh.virtual(k, device)``, or
+    ``0`` for k = 1).  Returns synced times, the peak device memory from the
+    timed open on, answers after the interaction and after the tick, plan
+    counters and the bytes of every ⊕-fold."""
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    folds: list = []
+    with folded_bytes(L, folds):
+        t = L.Treant(cat, ring=L.sr.SUM, mesh=mesh, device=device)
+        t0 = time.perf_counter()
+        sess = t.open_session(unfused_spec(L), name=f"shards_{k}")
+        sync()
+        open_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        sess.apply(shard_event(L))
+        sync()
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        answers = {v: sess.read(v).factor.field.cpu() for v in sess.spec.names}
+        rec = dict(k=k, open_ms=open_ms, apply_ms=apply_ms, answers=answers,
+                   plans=t.cache_stats()["plans"], folds=list(folds),
+                   rels={n: (cat.get(n).num_rows, cat.get(n).row_bucket) for n in cat.names()})
+        if tick:
+            codes, meas = shard_tick_rows(np, cat.get("Opp"))
+            t.stream("Opp").append(codes, measures=meas)
+            t0 = time.perf_counter()
+            res = t.flush()
+            sync()
+            rec["flush_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["flush"] = _flush_summary(res)
+            rec["tick_answers"] = {v: sess.read(v).factor.field.cpu() for v in sess.spec.names}
+            rec["tick_plans"], rec["tick_folds"] = t.cache_stats()["plans"], folds
+            opp = cat.get("Opp")
+            check(float(opp.measures["amount"].astype(np.float64).sum()) < 2 ** 24,
+                  "sharded: the amounts' total after the tick is not exact in float32")
+    if cuda:
+        rec["peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    sess.close()
+    return rec
+
+
+def sharded_checks(torch, L, runs: dict) -> None:
+    """Answers bit-equal to the unsharded run, plan counters equal but the
+    shard counters, ``allreduce_bytes`` equal to the folds' bytes and
+    ``shard_imbalance`` equal to its formula's worst relation: after the
+    interaction and, where both ran it, after the tick."""
+    base = runs[1]
+    check(base["plans"]["shard_execs"] == 0 and not base["folds"],
+          "sharded: the mesh=0 run sharded a dispatch")
+    for k, rec in runs.items():
+        if k == 1:
+            continue
+        for key in ("answers", "tick_answers"):
+            for viz, a in rec.get(key, {}).items():
+                check(torch.equal(a, base[key][viz]),
+                      f"sharded k={k}: {viz} differs from mesh=0 ({key})")
+        if "flush" in rec:
+            check(rec["flush"] == base["flush"], f"sharded k={k}: the tick's counters differ")
+        worst = max(L.dist.shard_imbalance(n, b, k) for n, b in rec["rels"].values())
+        for stage in ("", "tick_"):
+            if stage + "plans" not in rec:
+                continue
+            plans, folds = rec[stage + "plans"], rec[stage + "folds"]
+            what = f"sharded k={k}{' after the tick' if stage else ''}"
+            check({c: v for c, v in plans.items() if c not in SHARD_COUNTERS}
+                  == {c: v for c, v in base[stage + "plans"].items() if c not in SHARD_COUNTERS},
+                  f"{what}: plan counters differ from mesh=0")
+            check(plans["shard_execs"] > 0 and plans["shard_execs"] == len(folds),
+                  f"{what}: {plans['shard_execs']} sharded dispatches, {len(folds)} folds")
+            check(plans["allreduce_bytes"] == sum(folds),
+                  f"{what}: allreduce_bytes {plans['allreduce_bytes']} != folded {sum(folds)}")
+            if stage:  # the tick's delta relation
+                worst = max(worst, L.dist.shard_imbalance(
+                    SHARD_TICK_ROWS, L.row_bucket(SHARD_TICK_ROWS), k))
+            check(abs(plans["shard_imbalance"] - worst) < 1e-12,
+                  f"{what}: shard_imbalance {plans['shard_imbalance']} != {worst}")
+
+
+def chain_demo(torch, np, L, device: str) -> dict:
+    """The domain-sharded chain calibration at r = 6, d = 4,096 on a 4-shard
+    virtual mesh against the unsharded ``calibrate_chain_reference``."""
+    dist = L.dist
+    mesh = dist.ShardMesh.virtual(CHAIN_SHARDS, device, axis="data")
+    rng = np.random.default_rng(0)
+    factors_np = [rng.random((CHAIN_D, CHAIN_D)).astype(np.float32) for _ in range(CHAIN_R)]
+    fwd_ref, bwd_ref = dist.calibrate_chain_reference(
+        [torch.from_numpy(f).to(device) for f in factors_np])
+    fn = dist.make_chain_calibrate(mesh, "data", CHAIN_R, CHAIN_D)
+    placed = dist.place_chain_factors(mesh, "data", factors_np)
+    fn(placed)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd, bwd, total = fn(placed)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    err = 0.0
+    for got, want in zip(fwd + bwd, fwd_ref + bwd_ref):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+        err = max(err, float(((got - want).abs() / want.abs()).max()))
+    return dict(r=CHAIN_R, d=CHAIN_D, shards=CHAIN_SHARDS, ms=ms, max_rel_err=err,
+                total=float(total))
+
+
+def sharded_phase(torch, np, K, L, icat, report: dict) -> dict:
+    """Phase 17: the sharded plans on virtual meshes of the one card."""
+    card = report["card"]
+    runs: dict = {k: [] for k in SHARD_WIDTHS}
+    launches: dict = {k: [] for k in SHARD_WIDTHS}
+    for k in SHARD_ORDER:
+        cat, mesh = sharded_catalog(L, icat, k, "cuda")
+        reset_launches(K)
+        rec = sharded_drive(torch, np, L, cat, mesh, k, "cuda", tick=k in SHARD_TICK_WIDTHS)
+        launches[k].append(read_launches(K))
+        runs[k].append(rec)
+        del cat
+        gc.collect()
+        torch.cuda.empty_cache()
+        plans = rec.get("tick_plans", rec["plans"])
+        tick = (f", flush {rec['flush_ms']:.1f} ms" if "flush_ms" in rec else "")
+        print(f"sharded ({card}) k={k}: open_session {rec['open_ms']:.1f} ms, interaction "
+              f"{rec['apply_ms']:.1f} ms{tick}; peak device memory {rec['peak_mb']:.1f} MiB; "
+              f"shard_execs {plans['shard_execs']}, allreduce_bytes {plans['allreduce_bytes']}, "
+              f"shard_imbalance {plans['shard_imbalance']:.4f}; launches {launches[k][-1]}",
+              flush=True)
+    for rep in range(SHARD_ORDER.count(1)):
+        sharded_checks(torch, L, {k: runs[k][rep] for k in SHARD_WIDTHS})
+    k = max(SHARD_WIDTHS)
+    for name in SEGMENT:
+        check(launches[k][0][name] > 0, f"sharded k={k}: {name} never launched")
+    check(launches[k][0]["level_segment_aggregate"] > launches[1][0]["level_segment_aggregate"],
+          f"sharded k={k}: no more level launches than mesh=0")
+    opp_n, opp_b = runs[k][0]["rels"]["Opp"]
+    print(f"sharded: answers bit-equal to mesh=0 at k = {SHARD_WIDTHS[1:]} and after the "
+          f"{SHARD_TICK_ROWS}-row tick; Opp's own imbalance "
+          + ", ".join(f"{L.dist.shard_imbalance(opp_n, opp_b, k):.4f} at k={k}"
+                      for k in SHARD_WIDTHS[1:]), flush=True)
+    audit: dict = {}
+    k = max(SHARD_WIDTHS)
+    cat, mesh = sharded_catalog(L, icat, k, "cuda")
+    t0 = time.perf_counter()
+    with kernel_audit(torch, K, L, audit, exact=True):
+        again = sharded_drive(torch, np, L, cat, mesh, k, "cuda", tick=True)
+    del cat
+    print_audit(f"sharded k={k}", audit, time.perf_counter() - t0)
+    for name in SEGMENT:
+        check(audit[name]["checked"] > 0, f"sharded: no {name} launch was held")
+    # a sharded level-plan call launches once per shard (the audit's
+    # "split" counts those launches)
+    check(min(audit["level_runs"]) >= k, f"sharded: a level-plan call launched fewer than "
+          f"{k} times: {audit['level_runs']}")
+    for key in ("answers", "tick_answers"):
+        for viz, a in again[key].items():
+            check(torch.equal(a, runs[k][0][key][viz]), f"sharded: audited {viz} differs ({key})")
+    for k in (1, max(SHARD_WIDTHS)):
+        cat, mesh = sharded_catalog(L, icat, k, "cuda")
+        t = L.Treant(cat, ring=L.sr.SUM, mesh=mesh, device="cuda")
+        profile_phase(torch, f"sharded k={k}",
+                      lambda: t.open_session(unfused_spec(L), name="profiled"), report)
+        del cat, t
+        gc.collect()
+        torch.cuda.empty_cache()
+    chain = chain_demo(torch, np, L, "cuda")
+    print(f"sharded ({card}): chain r={chain['r']} d={chain['d']} on {chain['shards']} "
+          f"shards {chain['ms']:.1f} ms, max relative error {chain['max_rel_err']:.3g} "
+          f"against calibrate_chain_reference (rtol 1e-4)", flush=True)
+    report["sharded"] = dict(
+        card=card, order=SHARD_ORDER, chain=chain, audit=audit,
+        runs={k: [{key: v for key, v in r.items() if key not in ("answers", "tick_answers")}
+                  for r in rs] for k, rs in runs.items()},
+        launches=launches,
+    )
+    # the main path's count: the first 4-shard run, counted from 0
+    return dict(launches=launches[k][0])
+
+
 def main() -> int:
     try:
         import torch
@@ -2784,6 +3053,7 @@ def main() -> int:
         SwapMeasure, ToggleRelation, Treant, Undo, VizSpec, build_cube, insert_empty_bag,
         jt_from_catalog, naive_cube_cost,
     )
+    from repro_torch.core import distributed as dist
     from repro_torch.core import semiring as sr
     from repro_torch.kernels import build, launch
     from repro_torch.kernels.segment_aggregate import kernel as seg_kernel
@@ -2796,7 +3066,7 @@ def main() -> int:
     from repro_torch.kernels.tropical_contract import ops as tc_ops
     from repro_torch.kernels.tropical_contract import ref as tc_ref
     from repro_torch.relational import Catalog, StreamBuffer, schema
-    from repro_torch.relational.relation import mask_in
+    from repro_torch.relational.relation import mask_in, row_bucket
     from repro_torch.relational.sql import parse
     from repro_torch.serve import ServeStats, TreantServer
 
@@ -2813,7 +3083,7 @@ def main() -> int:
         StreamBuffer=StreamBuffer, Session=Session, FixedKPrefetch=FixedKPrefetch,
         PredictiveThinkTime=PredictiveThinkTime, TreantServer=TreantServer, ServeStats=ServeStats,
         Query=Query, Catalog=Catalog, build_cube=build_cube, naive_cube_cost=naive_cube_cost,
-        flight=schema.flight,
+        flight=schema.flight, dist=dist, ShardMesh=dist.ShardMesh, row_bucket=row_bucket,
     )
     M = types.SimpleNamespace(FactorizedLinearRegression=FactorizedLinearRegression,
                               FeatureSpec=FeatureSpec)
@@ -2856,7 +3126,10 @@ def main() -> int:
         cube = cube_phase(torch, np, K, L, flights, report)
         del flights
         print("offline calibration with unfused levels (phase 16):", flush=True)
-        unfused = unfused_phase(torch, np, K, L, sliced["cat"], report)
+        icat = int_amount_catalog(np, L, sliced["cat"])
+        unfused = unfused_phase(torch, np, K, L, icat, report)
+        print("sharded execution on virtual meshes (phase 17):", flush=True)
+        sharded = sharded_phase(torch, np, K, L, icat, report)
         for r in records:
             r["launches_session"] = live["launches_session"][r["name"]]
             r["launches_ingest"] = live["launches_ingest"][r["name"]]
@@ -2865,6 +3138,7 @@ def main() -> int:
             r["launches_ml"] = ml["launches"][r["name"]]
             r["launches_cube"] = cube["launches"][r["name"]]
             r["launches_unfused"] = unfused["launches"][r["name"]]
+            r["launches_sharded"] = sharded["launches"][r["name"]]
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -11,6 +11,7 @@ import importlib
 _EXPORTS = {
     "semiring": None,
     "steiner": None,
+    "distributed": None,
     "Factor": "factor",
     "contract": "factor",
     "brute_force_join_aggregate": "factor",

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.relational.relation import LRU, Catalog, Delta, Relation, lift_rows
+from . import distributed as dist
 from . import semiring as sr
 from .factor import Factor, contract
 from .hypertree import JTree
@@ -539,7 +540,11 @@ class CJTEngine:
     (``PlanCache.run_message_batch``) instead of in one call.  The three
     default to ``None``: the env knobs ``REPRO_USE_PLANS``,
     ``REPRO_BATCH_CALIBRATION`` and ``REPRO_FUSE_LEVEL_KERNEL`` (on unless
-    set to 0); an explicit argument wins.
+    set to 0); an explicit argument wins.  ``mesh`` (a
+    ``distributed.ShardMesh``) row-shards the plans' fact scans over its
+    shards and ⊕-folds the γ-indexed partials; ``device`` defaults to the
+    mesh's first device and must be that device.  A shared ``plan_cache``
+    keeps its own mesh.
     """
 
     def __init__(
@@ -555,6 +560,7 @@ class CJTEngine:
         batch_calibration: bool | None = None,
         fuse_level_kernel: bool | None = None,
         device: torch.device | str | None = None,
+        mesh: dist.ShardMesh | None = None,
     ):
         if use_plans is None:
             use_plans = use_plans_default()
@@ -577,13 +583,20 @@ class CJTEngine:
                 raise ValueError(f"plan_cache is on {plan_cache.device}, engine on {device}")
             self.device = plan_cache.device
         else:
+            if device is None and mesh is not None:
+                device = mesh.devices[0]
             self.device = resolve_device(device)
+        if mesh is not None and not dist.same_device(mesh.devices[0], self.device):
+            raise ValueError(f"the mesh's first device is {mesh.devices[0]}, the engine's "
+                             f"{self.device}")
+        self.mesh = mesh
         # an empty cache is falsy (``__len__``): test for None, or a shared
         # cache handed to a fresh engine would be dropped for a private one
         if not use_plans:
             self.plans = None
         else:
-            self.plans = plan_cache if plan_cache is not None else PlanCache(ring, self.device)
+            self.plans = (plan_cache if plan_cache is not None
+                          else PlanCache(ring, self.device, mesh=mesh))
         # level-batched calibration is inert without plans (per-edge loop);
         # level fusion is inert without level batching
         self.batch_calibration = batch_calibration

@@ -21,6 +21,13 @@ plan.  PyTorch runs eagerly, so nothing is traced or compiled here.
   On a CUDA device those launch the hand-written kernels, always — there is
   no cost gate; on the CPU the same wrappers run their plain versions.
   BOOL, int64 COUNT and covariance reduce with plain torch on both devices.
+- **Row sharding.**  With a mesh (``PlanCache(mesh=...)``) and a ring whose
+  ⊕ has a collective, sparse, batched and level plans run their unchanged
+  local body once per shard on the shard's block of ``row_bucket // k``
+  rows — one kernel launch per shard — and ⊕-fold the γ-indexed partials
+  in shard order (:mod:`.distributed`).  BOOL, and relations whose row
+  bucket the mesh does not divide, keep the unsharded plans; dense plans
+  are never sharded.
 - **Dense bags.**  A bag whose relations are densified (no relation, or
   ``dense_rows_threshold``) contracts dense factors.  A two-factor
   contraction whose shared attrs do not survive to the output is a matrix
@@ -46,6 +53,7 @@ from repro_torch.kernels.semiring_contract import ops as sc_ops
 from repro_torch.kernels.tropical_contract import ops as tc_ops
 from repro_torch.relational.relation import LRU, Predicate
 
+from . import distributed as dist
 from . import semiring as sr
 from .factor import Factor, contract
 
@@ -190,9 +198,17 @@ class PlanStats:
     # (select + ⊕-marginalize — no plan execution, no store probe)
     cube_builds: int = 0
     cube_slices: int = 0
+    # mesh-sharded execution (PlanCache(mesh=...)): dispatches that ran per
+    # shard, the bytes their ⊕-folds carried (static per plan: Σ output-
+    # factor payloads), and the worst row imbalance observed (max valid rows
+    # per shard / ideal per-shard rows)
+    shard_execs: int = 0
+    allreduce_bytes: int = 0
+    shard_imbalance: float = 0.0
 
     # counters that are high-water marks, not sums
-    MAX_FIELDS = ("batch_width", "level_batch_width", "cross_session_width")
+    MAX_FIELDS = ("batch_width", "level_batch_width", "cross_session_width",
+                  "shard_imbalance")
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -257,6 +273,11 @@ class _Plan:
     # level plans only: per-group kernel routing + Σ width of fused groups
     group_kernel: tuple = ()
     fused_messages: int = 0
+    # mesh-sharded plans only: the body runs per shard and every output
+    # factor is ⊕-folded; allreduce_bytes is the static Σ of those payloads
+    # (one per output factor per dispatch)
+    sharded: bool = False
+    allreduce_bytes: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +418,54 @@ def _build_sparse_plan(ring, rel_attrs, doms, in_attrs_list, pred_attrs, out_att
         ring, rel_attrs, doms, in_attrs_list, pred_attrs, out_attrs, n
     )
     return _Plan(fn=fn, uses_kernel=meta.use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# mesh-sharded plans: the local body per row block, then ⊕-fold the partials
+# ---------------------------------------------------------------------------
+
+def _sparse_shard_specs(axis: str) -> tuple:
+    """``dist.shard_map`` in_specs (pytree prefixes) for the (vals,
+    in_fields, in_idx, pred_masks, pred_codes, seg_idx) layout every sparse
+    plan body takes: row-major arrays (lifts, gather indices, σ row codes,
+    segment ids) split on the mesh axis; γ-indexed message fields and σ
+    domain masks replicate.  The same prefixes cover the level layout
+    (tuple-of-members)."""
+    return (axis, None, axis, None, axis, axis)
+
+
+def _out_factor_bytes(ring: sr.Semiring, doms: dict[str, int],
+                      out_attrs: tuple[str, ...]) -> int:
+    """Static payload of one ⊕-folded output factor — its cells over the
+    output attrs times the ring's leaves (scalar-leaf approximation for
+    compound rings)."""
+    cells = int(np.prod([doms[a] for a in out_attrs])) if out_attrs else 1
+    return cells * len(ring.trailing) * ring.dtype.itemsize
+
+
+def _build_sharded_sparse_plan(ring, rel_attrs, doms, in_attrs_list, pred_attrs, out_attrs,
+                               n: int, mesh: dist.ShardMesh, axis: str) -> _Plan:
+    """Row-sharded single contraction over a 1-D mesh.
+
+    The local body is the *unchanged* rowwise → σ → segment-⊕ pipeline built
+    for a 1/nshards row block (pad rows carry the ⊕-identity, so any block
+    split of the padded bucket is exact); the shards' partial factors over
+    the output attrs (separator ∪ carried γ) are ⊕-folded in shard order —
+    never a join.
+    """
+    nshards = mesh.shape[axis]
+    if n % nshards:
+        raise ValueError(f"row bucket {n} not divisible by mesh {nshards}")
+    fn_local, _, _, meta = _sparse_plan_parts(
+        ring, rel_attrs, doms, in_attrs_list, pred_attrs, out_attrs, n // nshards
+    )
+    collective = dist.ring_collective(ring)
+    run = dist.shard_map(fn_local, mesh, in_specs=_sparse_shard_specs(axis))
+    return _Plan(
+        fn=lambda *args: dist.allreduce_field(run(*args), collective),
+        uses_kernel=meta.use_kernel, sharded=True,
+        allreduce_bytes=_out_factor_bytes(ring, doms, out_attrs),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -553,6 +622,41 @@ def _build_level_plan(ring: sr.Semiring, group_statics: tuple) -> _Plan:
                  fused_messages=fused_messages)
 
 
+def _build_sharded_level_plan(ring: sr.Semiring, group_statics: tuple,
+                              mesh: dist.ShardMesh, axis: str) -> _Plan:
+    """One level dispatch over the mesh — the level stays the unit of
+    collective scheduling.
+
+    The whole level body (every group's rowwise stage plus the shared
+    ``level_aggregate`` launch) runs per shard on local row blocks — one
+    kernel-2 launch per shard; then every member factor of every group is
+    ⊕-folded in one round.  A batch of sibling absorptions
+    (``run_sparse_batch``) is the level plan of one group, sharded the same
+    way.
+    """
+    nshards = mesh.shape[axis]
+    local_statics = []
+    for (rel_attrs, doms, in_canon, pred_attrs, out_canon, n, member_dims) in group_statics:
+        if n % nshards:
+            raise ValueError(f"row bucket {n} not divisible by mesh {nshards}")
+        local_statics.append((rel_attrs, doms, in_canon, pred_attrs, out_canon,
+                              n // nshards, member_dims))
+    lfn, group_kernel, fused_messages = _level_plan_parts(ring, tuple(local_statics))
+    collective = dist.ring_collective(ring)
+    per_group = _sparse_shard_specs(axis)
+    run = dist.shard_map(lfn, mesh, in_specs=(tuple(per_group for _ in group_statics),))
+    bytes_ = sum(
+        _out_factor_bytes(ring, {**doms, **md}, out_canon)
+        for (_ra, doms, _ic, _pa, out_canon, _n, member_dims) in group_statics
+        for md in member_dims
+    )
+    return _Plan(
+        fn=lambda groups_args: dist.allreduce_field(run(groups_args), collective),
+        uses_kernel=any(group_kernel), group_kernel=group_kernel,
+        fused_messages=fused_messages, sharded=True, allreduce_bytes=bytes_,
+    )
+
+
 # ---------------------------------------------------------------------------
 # dense-bag plan: σ selects → contract (matmul-split kernels / plain torch)
 # ---------------------------------------------------------------------------
@@ -630,6 +734,13 @@ class PlanCache:
     and σ domain masks, the last three on ``device``.  Keys are
     content-addressed by (relation, version, …) or predicate digest, so
     nothing ever needs invalidation.
+
+    With a ``mesh`` (whose first device must be ``device``) and a
+    ⊕-collective for the ring, sparse/batched/level plans run per shard and
+    ⊕-fold the γ-indexed partials.  Rings without a collective (BOOL: ⊕ = ∨)
+    and relations whose row bucket does not divide the mesh keep the
+    unsharded plans — sharding is an execution strategy, never a semantic
+    (``shard_execs`` shows which ran).
     """
 
     def __init__(
@@ -640,14 +751,23 @@ class PlanCache:
         lift_capacity: int = 128,
         factor_capacity: int = 128,
         mask_capacity: int = 512,
+        mesh: dist.ShardMesh | None = None,
+        mesh_axis: str = dist.SHARD_AXIS,
     ):
         self.ring = ring
         self.device = resolve_device(device)
+        if mesh is not None and not dist.same_device(mesh.devices[0], self.device):
+            raise ValueError(f"the mesh's first device is {mesh.devices[0]}, the plan cache's "
+                             f"{self.device}: sharded plans fold onto the cache's device")
         self._plans = LRU(plan_capacity)
         self._lifts = LRU(lift_capacity)
         self._factors = LRU(factor_capacity)
         self._masks = LRU(mask_capacity)
         self.stats = PlanStats()
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.shards = mesh.shape[mesh_axis] if mesh is not None else 1
+        self._collective = dist.ring_collective(ring) if self.shards > 1 else None
 
     # -- device-resident input caches ---------------------------------------
     def mask_dev(self, pred: Predicate) -> torch.Tensor:
@@ -686,6 +806,21 @@ class PlanCache:
             stats.plan_hits += int(not built)
             stats.kernel_execs += int(uses_kernel)
 
+    def _shard_arity(self, rel) -> int:
+        """Mesh width this relation's plans shard over (1 = unsharded)."""
+        if self._collective is None or rel.row_bucket % self.shards != 0:
+            return 1
+        return self.shards
+
+    def _account_sharded(self, entry: _Plan, rels) -> None:
+        self.stats.shard_execs += 1
+        self.stats.allreduce_bytes += entry.allreduce_bytes
+        for rel in rels:
+            self.stats.shard_imbalance = max(
+                self.stats.shard_imbalance,
+                dist.shard_imbalance(rel.num_rows, rel.row_bucket, self.shards),
+            )
+
     def sparse_key(self, rel, vals: sr.Field, incoming: Sequence[Factor],
                    preds: Sequence[Predicate], out_attrs: Sequence[str]) -> tuple:
         return (
@@ -710,16 +845,23 @@ class PlanCache:
         out_attrs: tuple[str, ...],
         stats=None,
     ) -> Factor:
+        shards = self._shard_arity(rel)
         key = self.sparse_key(rel, vals, incoming, preds, out_attrs)
+        if shards > 1:
+            key = key + (("shards", shards),)
         entry = self._plans.get(key)
         built = entry is None
         if built:
             doms = dict(rel.domains)
             for m in incoming:
                 doms.update(m.domains)
-            entry = _build_sparse_plan(
+            build_args = (
                 self.ring, rel.attrs, doms, tuple(m.attrs for m in incoming),
                 tuple(p.attr for p in preds), tuple(out_attrs), rel.row_bucket,
+            )
+            entry = (
+                _build_sharded_sparse_plan(*build_args, self.mesh, self.mesh_axis)
+                if shards > 1 else _build_sparse_plan(*build_args)
             )
             self._plans.put(key, entry)
         rel_set = set(rel.attrs)
@@ -734,6 +876,8 @@ class PlanCache:
         seg_idx, _ = catalog.dev_flat_codes(rel, local_out, self.device)
         out = entry.fn(vals, tuple(in_fields), tuple(in_idx), pred_masks, pred_codes, seg_idx)
         self._account(entry.uses_kernel, built, stats)
+        if entry.sharded:
+            self._account_sharded(entry, (rel,))
         return out
 
     def run_level(
@@ -757,16 +901,29 @@ class PlanCache:
         # canonical group order: σ-variants can permute a level's groups
         # without changing its structure
         order = sorted(range(len(specs)), key=lambda i: repr(specs[i].key))
+        # a level shards only when EVERY group's relation divides the mesh —
+        # one collective schedule per level, no mixed dispatch
+        shards = self.shards if all(
+            self._shard_arity(s.items[0].rel) == self.shards for s in specs
+        ) else 1
         key = ("level", self.ring.name, tuple(specs[i].key for i in order))
+        if shards > 1:
+            key = key + (("shards", shards),)
         entry = self._plans.get(key)
         built = entry is None
         if built:
-            entry = _build_level_plan(self.ring, tuple(specs[i].statics for i in order))
+            statics = tuple(specs[i].statics for i in order)
+            entry = (
+                _build_sharded_level_plan(self.ring, statics, self.mesh, self.mesh_axis)
+                if shards > 1 else _build_level_plan(self.ring, statics)
+            )
             self._plans.put(key, entry)
         outs = entry.fn(tuple(self._group_args(catalog, specs[i]) for i in order))
         if entry.uses_kernel:
             self.stats.fused_level_launches += 1
             self.stats.fused_level_messages += entry.fused_messages
+        if entry.sharded:
+            self._account_sharded(entry, (s.items[0].rel for s in specs))
         results: list[list[Factor] | None] = [None] * len(specs)
         for pos, i in enumerate(order):
             spec = specs[i]
@@ -827,12 +984,20 @@ class PlanCache:
                    calibration: bool) -> list[Factor]:
         assert len(items) >= 2, "batch of one: use run_sparse"
         spec = self._group_spec(items, stats_list)
-        entry = self._plans.get(spec.key)
+        rel = spec.items[0].rel
+        shards = self._shard_arity(rel)
+        key = spec.key + (("shards", shards),) if shards > 1 else spec.key
+        entry = self._plans.get(key)
         built = entry is None
         if built:
-            entry = _build_level_plan(self.ring, (spec.statics,))
-            self._plans.put(spec.key, entry)
+            entry = (
+                _build_sharded_level_plan(self.ring, (spec.statics,), self.mesh, self.mesh_axis)
+                if shards > 1 else _build_level_plan(self.ring, (spec.statics,))
+            )
+            self._plans.put(key, entry)
         (outs,) = entry.fn((self._group_args(catalog, spec),))
+        if entry.sharded:
+            self._account_sharded(entry, (rel,))
         width = len(spec.items)
         if calibration:
             self.stats.level_batched_execs += 1

@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.relational.relation import Catalog, Delta, Relation
 from repro_torch.relational.stream import CompactionPolicy, StreamBuffer
+from . import distributed as dist
 from . import semiring as sr
 from .calibration import CJTEngine, DeltaStats, ExecStats, MessageStore, synchronize
 from .dashboard import (
@@ -137,6 +138,13 @@ class Treant:
     ``REPRO_BATCH_FANOUT``, ``REPRO_BATCH_CALIBRATION``,
     ``REPRO_FUSE_LEVEL_KERNEL`` (on unless 0) and
     ``REPRO_COMPACTION_THRESHOLD`` (0.25); an explicit argument wins.
+
+    ``mesh`` row-shards every engine's fact scans: a
+    ``distributed.ShardMesh`` (``ShardMesh.virtual(k, device)`` puts k
+    shards on one device, ``ShardMesh.cards(k)`` one shard per card);
+    ``None`` reads ``REPRO_SHARD_DEVICES`` (a mesh over that many distinct
+    cards, or none when fewer are present); ``0`` or ``False`` opts out.
+    ``device`` defaults to the mesh's first device and must be that device.
     """
 
     def __init__(
@@ -154,6 +162,7 @@ class Treant:
         compaction_threshold: float | None = None,
         policy: ThinkTimePolicy | None = None,
         device: torch.device | str | None = None,
+        mesh: dist.ShardMesh | int | bool | None = None,
     ):
         if use_plans is None:
             use_plans = use_plans_default()
@@ -165,7 +174,17 @@ class Treant:
             fuse_level_kernel = fuse_level_default()
         if compaction_threshold is None:
             compaction_threshold = compaction_threshold_default()
+        if mesh is None:
+            mesh = dist.make_engine_mesh(device="cuda" if device is None else device)
+        elif mesh is False or mesh == 0:
+            mesh = None  # explicit opt-out: ignore REPRO_SHARD_DEVICES
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        # row-sharded execution: every engine's plan cache shards fact scans
+        # and ⊕-folds the γ-indexed partials (the engine raises on a mesh off
+        # its device)
+        self.mesh = mesh
         self.catalog = catalog
         self.jt = jt or jt_from_catalog(catalog)
         self.store = MessageStore(max_bytes=max_cache_bytes)
@@ -177,6 +196,8 @@ class Treant:
         self.batch_calibration = batch_calibration
         self.fuse_level_kernel = fuse_level_kernel
         self.engine = self._new_engine(ring)
+        if mesh is not None:
+            catalog.set_row_placement(dist.row_placement(mesh))
         # ring name -> engine; siblings share the store (per-ring plan caches)
         self._engines: dict[str, CJTEngine] = {ring.name: self.engine}
         self.scheduler = ThinkTimeScheduler()
@@ -202,7 +223,7 @@ class Treant:
             self.jt, self.catalog, ring, lifts=self._lifts, store=self.store,
             dense_rows_threshold=self._dense_rows_threshold, use_plans=self._use_plans,
             batch_calibration=self.batch_calibration, fuse_level_kernel=self.fuse_level_kernel,
-            device=self.device,
+            device=self.device, mesh=self.mesh,
         )
 
     # -- engines ---------------------------------------------------------------

@@ -5,6 +5,15 @@ given CUDA tensors it checks them, allocates the output filled with the
 ⊕-identity, launches the hand-written kernel on the current stream and
 counts the launch in :data:`LAUNCHES`.  There is no fallback: a CUDA input
 the kernel does not take, a failed build or a refused launch raises.
+
+Sharded composition: both :func:`aggregate_op` and :func:`level_aggregate`
+are *shard-local* — under ``repro_torch.core.distributed.shard_map`` they
+see the shard's row block (codes and value slab sliced on the leading
+axis; segment ids stay global) and produce a full ``(num_segments, v)``
+partial that the caller ⊕-folds over the mesh (``+``/min/max; see
+``distributed.ring_collective``).  ⊕-identity row padding makes any equal
+block split of a padded row bucket exact.  Each shard's call launches on
+the shard's device, so a sharded plan launches once per shard.
 """
 
 from __future__ import annotations

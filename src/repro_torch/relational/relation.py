@@ -430,8 +430,23 @@ class Catalog:
         self._wm_pins: dict[int, int] = {}
         # device-resident flat codes keyed by (relation, version, attrs, device)
         self._dev_codes: LRU = LRU(capacity=512)
+        # optional row placement over an engine mesh (see set_row_placement)
+        self._row_placement = None
         for r in relations:
             self.put(r)
+
+    def set_row_placement(self, placement) -> None:
+        """Record the row placement (``distributed.row_placement(mesh)``)
+        that ``Treant(mesh=...)`` runs its sharded plans under.
+
+        Cached code arrays stay whole on their device: a sharded plan splits
+        each into the mesh's row blocks when it dispatches
+        (``distributed.shard_map``), as views on a virtual mesh and as
+        copies made once per cached array on distinct cards.  Codes are
+        zero-padded to the power-of-two row bucket, so any equal block
+        split of the leading axis is exact.
+        """
+        self._row_placement = placement
 
     def dev_flat_codes(self, rel: Relation, attrs: Sequence[str],
                        device: torch.device | str) -> tuple[torch.Tensor, int]:
@@ -439,6 +454,8 @@ class Catalog:
 
         Codes are zero-padded to ``rel.row_bucket``: pad rows aggregate at
         index 0 but carry ⊕-identity lift values, so they contribute nothing.
+        The cache key keeps the device; sharded plans block the cached
+        tensor per shard (:meth:`set_row_placement`).
         """
         device = torch.device(device)
         key = (rel.name, rel.version, tuple(attrs), str(device))

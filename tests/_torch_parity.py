@@ -17,7 +17,7 @@ def port_catalog(jax_catalog, round_measures: bool = False, measure_scale: float
     arrays = []
     for name in jax_catalog.names():
         rel = jax_catalog.get(name)
-        measures = {k: np.asarray(v) for k, v in rel.measures.items()}
+        measures = {k: np.asarray(v) for k, v in (rel.measures or {}).items()}
         if round_measures:
             measures = {k: np.round(v / measure_scale).astype(np.float32)
                         for k, v in measures.items()}

@@ -638,3 +638,57 @@ def test_cuda_cube_matches_cpu(cuda):
     assert (g.messages_computed, g.store_bytes) == (c.messages_computed, c.store_bytes)
     for combo, f in c.cuboids.items():
         assert torch.equal(g.cuboids[combo].field.cpu(), f.field)
+
+
+@pytest.mark.parametrize("measure", ["integer", "gamma"])
+def test_cuda_sharded_level_plan_matches_unsharded(cuda, measure):
+    """Calibration on a 4-shard virtual ``cuda`` mesh at 2^23 fact rows: every
+    level plan runs one ``level_segment_aggregate`` launch per shard, then
+    ⊕-folds.  On integer data (0/1 amounts: every sum stays below 2^24, so
+    float32 is exact in any order) the answer equals a float64 numpy sum and
+    every message is bit-equal to the unsharded engine's; on gamma data both
+    answers stay within max(1e-5, 4·√n·2^-24) of the float64 sum, n the rows
+    of the fact's largest segment."""
+    from repro_torch.core import CJTEngine, MessageStore, jt_from_catalog
+    from repro_torch.core import distributed as dist
+    from repro_torch.relational.relation import catalog_from_arrays
+
+    n = 1 << 23
+    rng = np.random.default_rng(17)
+    doms = {"a": 50, "b": 40, "c": 30}
+    fact = {x: rng.integers(0, doms[x], n).astype(np.int32) for x in ("a", "b")}
+    m = (rng.random(n) < 1 / 16 if measure == "integer" else rng.gamma(2.0, 50.0, n))
+    m = m.astype(np.float32)
+    dim = {x: rng.integers(0, doms[x], 4_000).astype(np.int32) for x in ("b", "c")}
+    arrays = [dict(name="F", attrs=("a", "b"), codes=fact, domains=doms, measures={"m": m}),
+              dict(name="S", attrs=("b", "c"), codes=dim, domains=doms, measures={})]
+    runs = {}
+    for k in (1, 4):
+        cat = catalog_from_arrays(arrays)
+        mesh = dist.ShardMesh.virtual(k, "cuda") if k > 1 else None
+        eng = CJTEngine(jt_from_catalog(cat), cat, sr.SUM, store=MessageStore(), mesh=mesh,
+                        device="cuda")
+        q = Query.make(cat, ring="sum", measure=("F", "m"), group_by=("c",))
+        ops.reset_launches()
+        eng.calibrate(q, batch=True)
+        torch.cuda.synchronize()
+        launches = ops.LAUNCHES["level_segment_aggregate"]
+        placement = eng.place_predicates(q)
+        msgs = {e: eng.message(q, *e, placement).field.cpu() for e in eng.jt.directed_edges()}
+        runs[k] = (launches, eng.execute(q)[0].field.cpu(), msgs, eng.plans.stats)
+    (l1, a1, m1, s1), (l4, a4, m4, s4) = runs[1], runs[4]
+    assert s1.shard_execs == 0 and s4.shard_execs >= s4.fused_level_launches > 0
+    assert s4.fused_level_launches == s1.fused_level_launches and l4 == 4 * l1 > 0
+    assert s4.shard_imbalance == pytest.approx(dist.shard_imbalance(4_000, 4_096, 4))  # S
+    pairs = np.zeros((doms["b"], doms["c"]))
+    np.add.at(pairs, (dim["b"], dim["c"]), 1.0)
+    want = torch.from_numpy(np.bincount(fact["b"], m.astype(np.float64), doms["b"]) @ pairs)
+    if measure == "integer":
+        assert float(want.max()) < 2 ** 24
+        assert torch.equal(a1.double(), want) and torch.equal(a4, a1)
+        for e, f in m1.items():
+            assert torch.equal(f, m4[e]), e
+        return
+    rtol = _sum_rtol(int(np.bincount(fact["b"]).max()))
+    for got in (a1, a4):
+        torch.testing.assert_close(got.double(), want, rtol=rtol, atol=0)
