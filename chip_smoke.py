@@ -147,7 +147,23 @@ CUDA toolkit.  Phases:
     launch held bit for bit against its plain version; ``open_session`` at
     k = 1 and 4 under ``torch.profiler``; the domain-sharded
     chain demo (r = 6, d = 4,096, 4 shards) against
-    ``calibrate_chain_reference`` at rtol 1e-4.
+    ``calibrate_chain_reference`` at rtol 1e-4;
+18. LM serving phase (``repro_torch.models`` / ``runtime.step`` /
+    ``launch.serve``, plain PyTorch, no kernel of its own): each of the ten
+    archs' ``smoke_config`` with every parameter leaf random, then
+    stablelm-12b at full width with its depth cut from 40 to 2 layers,
+    each on the card in float32 (TF32 off) against the port on the CPU:
+    prefill logits and caches and every decode step's logits within rtol
+    = atol 5e-4, greedy tokens equal; stablelm-12b at full width and
+    depth in bfloat16 (batch 4, prompt 64, 32 greedy decode steps): finite
+    logits, the teacher-forced decode at position 64 against a prefill of
+    65 tokens within its bf16 bound (rms difference at most
+    4·2^-8·√(2L+1) of the logits' rms, the largest at most four times
+    that), prefill and decode times beside their bounds (bytes over 3.35
+    TB/s, operations over 989 TFLOP/s), tokens/s, peak device memory and
+    one profiled decode step; zamba2-1.2b at full size through
+    ``repro_torch.launch.serve.main`` on the default device, float32:
+    (4, 33) tokens, all in the vocabulary.
 
 Two times go with every kernel: ``ms``, wrapper calls back to back between
 CUDA events (what the main path pays, host cost included), and
@@ -167,6 +183,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import os
 import subprocess
@@ -3027,6 +3044,294 @@ def sharded_phase(torch, np, K, L, icat, report: dict) -> dict:
     return dict(launches=launches[k][0])
 
 
+# ---------------------------------------------------------------------------
+# phase 18: LM serving (the port of the reference's LM stack)
+# ---------------------------------------------------------------------------
+
+LM_TOL = 5e-4                      # card (float32, TF32 off) against the CPU: rtol = atol
+LM_SMOKE = (2, 20, 4)              # batch, prompt, decode steps of the ten smoke configs
+LM_WIDE = (1, 16, 2)               # ... of stablelm-12b at full width, depth cut to 2
+LM_WIDE_LAYERS = 2
+LM_SERVE = (4, 64, 32)             # the reference serve entry point's batch, prompt, tokens
+BF16_U = 2.0 ** -8                 # bfloat16's unit roundoff
+LM_BF16_K = 4.0                    # roundings per sublayer and path the bf16 bound allows
+H100_BF16_FLOPS = 989e12           # dense bf16 tensor-core peak (data sheet)
+
+
+def lm_random_tree(np, LM, cfg, seed: int) -> dict:
+    """A numpy value for every parameter leaf (``tests/_torch_lm.py``'s
+    recipe): the default init's constants would hide a flipped conv or a
+    dead cross-attention gate."""
+    rng = np.random.default_rng(seed)
+
+    def build(path: str, spec):
+        name = path.rsplit("/", 1)[-1]
+        if name.startswith("mu_"):
+            return rng.uniform(0.0, 1.0, spec.shape).astype(np.float32)
+        if name == "gate":
+            return rng.standard_normal(spec.shape).astype(np.float32)
+        if spec.init == "normal":
+            fan_in = spec.shape[-2] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
+            return (rng.standard_normal(spec.shape) / np.sqrt(fan_in)).astype(np.float32)
+        base = {"zeros": 0.0, "ones": 1.0}.get(spec.init)
+        base = float(spec.init[6:]) if base is None else base
+        return (base + 0.3 * rng.standard_normal(spec.shape)).astype(np.float32)
+
+    return LM.lm.map_specs(LM.lm.param_specs(cfg), build)
+
+
+def lm_batch(torch, np, cfg, b: int, s: int, seed: int, device) -> dict:
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.input_mode == "embeddings":
+        out["embeds"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    if cfg.input_mode == "tokens+vision":
+        out["vision"] = rng.standard_normal((b, cfg.n_vision_tokens, cfg.d_model)).astype(
+            np.float32)
+    return {k: torch.as_tensor(v, device=device) for k, v in out.items()}
+
+
+def lm_run(torch, LM, cfg, params, batch: dict, gen: int, feed=None) -> dict:
+    """Prefill, caches padded to S + gen, then ``gen`` decode steps on the
+    greedy tokens of ``feed`` (another run's) or, without it, on this run's.
+    Returns the logits of every step (prefill first), copies of the prefill
+    caches and the greedy tokens, all on the CPU."""
+    b, s = next(iter(batch.values())).shape[:2]
+    dev = params["head"].device
+    prefill, decode = LM.step.make_prefill_step(cfg), LM.step.make_decode_step(cfg)
+    logits, caches = prefill(params, batch)
+    out = {"logits": [logits.cpu()], "caches": {k: v.cpu().clone() for k, v in caches.items()}}
+    caches = LM.serve.pad_caches(caches, s + gen)
+    tokens = [logits.argmax(-1).cpu()]
+    for i in range(gen):
+        if cfg.input_mode == "embeddings":
+            db = {"embeds": torch.zeros((b, 1, cfg.d_model), device=dev)}
+        else:
+            db = {"tokens": (feed or tokens)[i][:, None].to(device=dev, dtype=torch.int32)}
+        logits, caches = decode(params, db, caches, s + i)
+        out["logits"].append(logits.cpu())
+        tokens.append(logits.argmax(-1).cpu())
+    out["tokens"] = tokens
+    return out
+
+
+def lm_card_vs_cpu(torch, np, LM, cfg, params_cpu, params_gpu, shape, label: str) -> dict:
+    """The same prefill and decode steps on the card and on the CPU (the
+    CPU's greedy tokens fed to both): logits and prefill caches within
+    LM_TOL, greedy tokens equal."""
+    b, s, gen = shape
+    cpu = lm_run(torch, LM, cfg, params_cpu, lm_batch(torch, np, cfg, b, s, 2, "cpu"), gen)
+    card = lm_run(torch, LM, cfg, params_gpu, lm_batch(torch, np, cfg, b, s, 2, "cuda"), gen,
+                  feed=cpu["tokens"])
+    errs = {}
+    for name, ref in cpu["caches"].items():
+        got = card["caches"][name]
+        check(torch.allclose(got, ref, rtol=LM_TOL, atol=LM_TOL),
+              f"{label}: prefill cache {name} differs from the CPU by {max_abs_err(got, ref):.3g}")
+        errs[f"cache_{name}"] = max_abs_err(got, ref)
+    for i, (got, ref) in enumerate(zip(card["logits"], cpu["logits"])):
+        check(bool(torch.isfinite(got).all()), f"{label}: step {i} logits are not finite")
+        check(torch.allclose(got, ref, rtol=LM_TOL, atol=LM_TOL),
+              f"{label}: step {i} logits differ from the CPU by {max_abs_err(got, ref):.3g}")
+        errs[f"logits_{i}"] = max_abs_err(got, ref)
+    same = all(torch.equal(a, b_) for a, b_ in zip(card["tokens"], cpu["tokens"]))
+    check(same, f"{label}: greedy tokens differ between the card and the CPU")
+    return {"max_abs_err": max(errs.values()), "errs": errs,
+            "tokens": torch.stack(cpu["tokens"], 1).tolist()}
+
+
+def lm_work(cfg, params, b: int, s: int, t_ctx: int) -> dict:
+    """Least work of one uniform-pattern step over ``s`` new tokens per row
+    (prefill: s = S; decode: s = 1 at context length ``t_ctx``), in the
+    params' dtype.  Bytes: every parameter read once except the embedding
+    table (its B·s gathered rows), the new K/V written, the cache read up to
+    ``t_ctx`` and the float32 logits written.  Operations: 2 per multiply-add
+    of the block matmuls for B·s tokens, the head for the B last rows, and
+    causal attention (QKᵀ and PV) over the pairs this step needs."""
+    lay = params["layers"]
+    esz = params["head"].element_size()
+    n_all = sum(t.numel() for t in _lm_leaves(params))
+    n_mat = sum(t.numel() for t in _lm_leaves(lay) if t.dim() >= 3)
+    kv_row = 2 * cfg.n_kv_heads * cfg.d_head * esz * cfg.n_layers     # K and V, every layer
+    pairs = b * s * (s + 1) // 2 if s > 1 else b * t_ctx
+    flops = (2 * b * s * n_mat + 2 * b * cfg.d_model * cfg.vocab
+             + 4 * pairs * cfg.n_heads * cfg.d_head * cfg.n_layers)
+    nbytes = ((n_all - cfg.vocab * cfg.d_model) * esz + b * s * cfg.d_model * esz
+              + b * s * kv_row + (b * t_ctx * kv_row if s == 1 else 0) + b * cfg.vocab * 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _lm_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _lm_leaves(v)
+    else:
+        yield tree
+
+
+def lm_full_depth(torch, np, LM, report: dict) -> dict:
+    """stablelm-12b at full width and depth in bfloat16 through
+    ``repro_torch.runtime.step``: timed prefill and greedy decode beside
+    their bounds, the teacher-forced check, one profiled decode step."""
+    cfg = LM.get_config("stablelm-12b")
+    b, s, gen = LM_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM.lm.init_params(cfg, 0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**20
+    n_params = sum(t.numel() for t in _lm_leaves(params))
+    check(n_params == cfg.n_params(), f"stablelm-12b has {n_params} parameters, "
+          f"n_params() says {cfg.n_params()}")
+    weights_mib = sum(t.numel() * t.element_size() for t in _lm_leaves(params)) / 2**20
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (b, s + 1)),
+                           dtype=torch.int32, device="cuda")
+    prefill, decode = LM.step.make_prefill_step(cfg), LM.step.make_decode_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    batch = {"tokens": toks[:, :s]}
+    prefill(params, batch)                                        # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = statistics.median(times)
+    check(bool(torch.isfinite(logits).all()), "stablelm-12b bf16: prefill logits are not finite")
+
+    # teacher forcing: decode of token S after a prefill of S against the
+    # last logits of a prefill of S + 1
+    full, _ = prefill(params, {"tokens": toks})
+    tf, _ = decode(params, {"tokens": toks[:, s:]}, LM.serve.pad_caches(caches, s + 1), s)
+    check(bool(torch.isfinite(tf).all()), "stablelm-12b bf16: decode logits are not finite")
+    delta = (tf - full).float()
+    rms = lambda x: float(x.pow(2).mean().sqrt())                   # noqa: E731
+    scale = BF16_U * math.sqrt(2 * cfg.n_layers + 1) * rms(full)
+    tf_rec = {"rms_delta": rms(delta), "max_delta": float(delta.abs().max()),
+              "rms_logits": rms(full), "rms_bound": LM_BF16_K * scale,
+              "max_bound": 4 * LM_BF16_K * scale,
+              "argmax_equal": int((tf.argmax(-1) == full.argmax(-1)).sum())}
+    check(tf_rec["rms_delta"] <= tf_rec["rms_bound"] and tf_rec["max_delta"] <= tf_rec["max_bound"],
+          f"stablelm-12b bf16: teacher-forced decode differs from prefill by rms "
+          f"{tf_rec['rms_delta']:.4g} / max {tf_rec['max_delta']:.4g}, bounds "
+          f"{tf_rec['rms_bound']:.4g} / {tf_rec['max_bound']:.4g}")
+
+    warm = LM.serve.pad_caches(caches, s + gen)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    for i in range(2):                                            # warm-up
+        decode(params, {"tokens": tok}, warm, s + i)
+    caches = LM.serve.pad_caches(caches, s + gen)
+    out = [tok]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(gen):
+        step_logits, caches = decode(params, {"tokens": out[-1]}, caches, s + i)
+        out.append(step_logits.argmax(-1).to(torch.int32)[:, None])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(step_logits).all()), "stablelm-12b bf16: the last logits are not finite")
+    serve_peak = torch.cuda.max_memory_allocated() / 2**20
+    tokens = torch.cat(out, 1).cpu()
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), "stablelm-12b: a token is out of vocab")
+    pre_w = lm_work(cfg, params, b, s, s)
+    dec_w = lm_work(cfg, params, b, 1, s + gen // 2)             # the mean context of the run
+    rec = {"layers": cfg.n_layers, "d_model": cfg.d_model, "params": n_params,
+           "weights_mib": weights_mib, "init_s": init_s, "init_peak_mib": init_peak,
+           "prefill_ms": prefill_ms, "prefill_ms_runs": times, "prefill": pre_w,
+           "decode_ms_per_step": decode_s * 1e3 / gen, "decode": dec_w,
+           "tokens_per_s": b * gen / decode_s, "bound_tokens_per_s": b * 1e3 / dec_w["bound_ms"],
+           "serve_peak_mib": serve_peak, "teacher_forced": tf_rec, "tokens": tokens.tolist()}
+    print(f"  stablelm-12b bf16, {cfg.n_layers} layers, {n_params:,} parameters "
+          f"({weights_mib:,.1f} MiB), init {init_s:.1f} s (peak {init_peak:,.1f} MiB)", flush=True)
+    print(f"  prefill {b}x{s}: {prefill_ms:.3f} ms (runs {', '.join(f'{t:.3f}' for t in times)}); "
+          f"bound {pre_w['bound_ms']:.3f} ms ({pre_w['bound_by']}: {pre_w['bytes'] / 1e9:.2f} GB, "
+          f"{pre_w['flops'] / 1e12:.3f} TFLOP)", flush=True)
+    print(f"  decode: {rec['decode_ms_per_step']:.3f} ms per step over {gen} steps, "
+          f"{rec['tokens_per_s']:.1f} tokens/s; bound {dec_w['bound_ms']:.3f} ms per step "
+          f"({dec_w['bound_by']}: {dec_w['bytes'] / 1e9:.2f} GB), {rec['bound_tokens_per_s']:.1f} "
+          f"tokens/s", flush=True)
+    print(f"  peak while serving {serve_peak:,.1f} MiB (weights {weights_mib:,.1f})", flush=True)
+    print(f"  teacher-forced decode at {s} against prefill of {s + 1}: rms {tf_rec['rms_delta']:.5f} "
+          f"(bound {tf_rec['rms_bound']:.5f}), max {tf_rec['max_delta']:.5f} (bound "
+          f"{tf_rec['max_bound']:.5f}), rms logits {tf_rec['rms_logits']:.4f}, argmax equal "
+          f"{tf_rec['argmax_equal']}/{b}", flush=True)
+    print(f"  greedy tokens: {tokens.tolist()}", flush=True)
+    # one decode step at the last position (the whole cache read) under the profiler
+    profile_phase(torch, "lm_decode",
+                  lambda: decode(params, {"tokens": out[-1]}, caches, s + gen - 1), report)
+    return rec
+
+
+def lm_phase(torch, np, LM, report: dict) -> dict:
+    """Phase 18: the ten smoke configs and stablelm-12b at full width (2
+    layers), each on the card against the CPU in float32; stablelm-12b at
+    full depth in bf16; zamba2-1.2b at full size through the serve entry
+    point (float32, the default device)."""
+    started = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec: dict = {"tolerance": LM_TOL, "smoke": {}}
+    try:
+        for arch in LM.ALL_ARCHS:
+            cfg = LM.smoke_config(LM.get_config(arch))
+            tree = lm_random_tree(np, LM, cfg, 1)
+            r = lm_card_vs_cpu(torch, np, LM, cfg, LM.convert.params_from_reference(cfg, tree, "cpu"),
+                               LM.convert.params_from_reference(cfg, tree, "cuda"), LM_SMOKE, arch)
+            rec["smoke"][arch] = r
+            print(f"  {arch} smoke: card = CPU, max |err| {r['max_abs_err']:.3g}, tokens "
+                  f"{r['tokens'][0]}", flush=True)
+
+        wide = dataclasses.replace(LM.get_config("stablelm-12b"), n_layers=LM_WIDE_LAYERS)
+        gpu = LM.lm.init_params(wide, 0, device="cuda")
+        cpu = _lm_map(gpu, lambda t: t.cpu())
+        r = lm_card_vs_cpu(torch, np, LM, wide, cpu, gpu, LM_WIDE, "stablelm-12b wide")
+        del gpu, cpu
+        rec["wide"] = dict(r, cut=f"n_layers 40 -> {LM_WIDE_LAYERS}", shape=LM_WIDE)
+        print(f"  stablelm-12b at full width (d {wide.d_model}, d_head {wide.d_head}, GQA "
+              f"{wide.n_heads}/{wide.n_kv_heads}, vocab {wide.vocab:,}), depth cut 40 -> "
+              f"{LM_WIDE_LAYERS} layers, float32: card = CPU, max |err| {r['max_abs_err']:.3g}, "
+              f"tokens {r['tokens'][0]}", flush=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec["full"] = lm_full_depth(torch, np, LM, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", "zamba2-1.2b", "--no-smoke", "--batch", str(LM_SERVE[0]),
+            "--prompt-len", str(LM_SERVE[1]), "--gen", str(LM_SERVE[2])]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seq = LM.serve.main(argv)
+    wall = time.perf_counter() - t0
+    zcfg = LM.get_config("zamba2-1.2b")
+    check(seq.shape == (LM_SERVE[0], LM_SERVE[2] + 1), f"zamba2-1.2b serve returned {seq.shape}")
+    check(bool(((seq >= 0) & (seq < zcfg.vocab)).all()), "zamba2-1.2b serve: a token is out of vocab")
+    rec["zamba"] = {"argv": argv, "wall_s": wall, "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                    "tokens": seq.tolist()}
+    print(f"  zamba2-1.2b full size through repro_torch.launch.serve.main (float32, cuda): "
+          f"{seq.shape}, {wall:.2f} s wall with init, peak {rec['zamba']['peak_mib']:,.1f} MiB",
+          flush=True)
+    rec["wall_s"] = time.perf_counter() - started
+    print(f"  phase 18: {rec['wall_s']:.1f} s", flush=True)
+    report["lm"] = rec
+    return rec
+
+
+def _lm_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _lm_map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
 def main() -> int:
     try:
         import torch
@@ -3069,6 +3374,12 @@ def main() -> int:
     from repro_torch.relational.relation import mask_in, row_bucket
     from repro_torch.relational.sql import parse
     from repro_torch.serve import ServeStats, TreantServer
+    from repro_torch import configs as lm_configs
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import convert as lm_convert
+    from repro_torch.models import lm
+    from repro_torch.runtime import step as lm_step
 
     K = types.SimpleNamespace(
         seg_kernel=seg_kernel, seg_ops=seg_ops, seg_ref=seg_ref, sc_kernel=sc_kernel,
@@ -3087,6 +3398,9 @@ def main() -> int:
     )
     M = types.SimpleNamespace(FactorizedLinearRegression=FactorizedLinearRegression,
                               FeatureSpec=FeatureSpec)
+    LM = types.SimpleNamespace(ALL_ARCHS=lm_configs.ALL_ARCHS, get_config=lm_configs.get_config,
+                               smoke_config=smoke_config, lm=lm, convert=lm_convert,
+                               step=lm_step, serve=lm_serve)
     report: dict = {}
     started = time.perf_counter()
     try:
@@ -3139,6 +3453,12 @@ def main() -> int:
             r["launches_cube"] = cube["launches"][r["name"]]
             r["launches_unfused"] = unfused["launches"][r["name"]]
             r["launches_sharded"] = sharded["launches"][r["name"]]
+        # the earlier phases' tensors go before the LM stack's 24 GB of weights
+        del sliced, dense, fig21, icat, live, explore, served, ml, cube, unfused, sharded
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("LM serving (phase 18):", flush=True)
+        lm_phase(torch, np, LM, report)
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,0 +1,12 @@
+"""DeepSeek-Coder 33B: llama-arch GQA [arXiv:2401.14196; hf]."""
+from .base import ModelConfig, register
+
+
+@register("deepseek-coder-33b")
+def make() -> ModelConfig:
+    return ModelConfig(
+        name="deepseek-coder-33b", family="dense",
+        n_layers=62, d_model=7168, n_heads=56, n_kv_heads=8, d_head=128,
+        d_ff=19200, vocab=32256, mlp="swiglu", rope_theta=100_000.0,
+        source="[arXiv:2401.14196; hf]",
+    )

@@ -13,12 +13,20 @@ the segment kernels' gamma-valued sums agree to rtol 1e-5 (they add in
 float32 with atomics, in an order that changes from run to run); float16
 and uniform float32 contractions to the reference file's rtol 5e-3 /
 atol 1e-3.  The contract kernels sum in a fixed order (split partials merge
-in block order), so two calls on the same inputs give the same bits."""
+in block order), so two calls on the same inputs give the same bits.
+
+The LM stack's smoke configs run on the card in float32 with TF32 off and
+are held against the port on the CPU, every parameter leaf random: logits
+and caches to rtol / atol 5e-4 (summation order only), greedy tokens
+exactly."""
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_lm import make_batch, random_tree
+from repro_torch.configs import ALL_ARCHS, get_config
+from repro_torch.configs.base import smoke_config
 from repro_torch.core import Query, Treant
 from repro_torch.core import semiring as sr
 from repro_torch.kernels import launch
@@ -28,6 +36,9 @@ from repro_torch.kernels.semiring_contract import ops as sc_ops
 from repro_torch.kernels.semiring_contract.ref import semiring_contract_ref
 from repro_torch.kernels.tropical_contract import ops as tc_ops
 from repro_torch.kernels.tropical_contract.ref import tropical_contract_ref
+from repro_torch.launch.serve import pad_caches
+from repro_torch.models import convert
+from repro_torch.runtime.step import make_decode_step, make_prefill_step
 from repro_torch.relational import schema
 from repro_torch.relational.relation import mask_in
 
@@ -692,3 +703,43 @@ def test_cuda_sharded_level_plan_matches_unsharded(cuda, measure):
     rtol = _sum_rtol(int(np.bincount(fact["b"]).max()))
     for got in (a1, a4):
         torch.testing.assert_close(got.double(), want, rtol=rtol, atol=0)
+
+
+LM_TOL = dict(rtol=5e-4, atol=5e-4)
+
+
+@pytest.fixture
+def no_tf32():
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_cuda_lm_smoke_config_matches_cpu(cuda, no_tf32, arch):
+    """Prefill logits and every cache entry, then four greedy decode steps
+    (the CPU's tokens fed to both), on the card against the CPU."""
+    cfg = smoke_config(get_config(arch))
+    tree = random_tree(cfg, 1)
+    b, s, gen = 2, 20, 4
+    batch = make_batch(cfg, b, s, seed=2)
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = convert.params_from_reference(cfg, tree, dev)
+        prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+        logits, caches = prefill(params, batch)
+        runs[str(dev)] = [(logits, {k: v.clone() for k, v in caches.items()})]
+        caches = pad_caches(caches, s + gen)
+        for i in range(gen):
+            tok = runs["cpu"][i][0].argmax(-1)[:, None].to(torch.int32).numpy()
+            db = {"embeds": np.zeros((b, 1, cfg.d_model), np.float32)} \
+                if cfg.input_mode == "embeddings" else {"tokens": tok}
+            logits, caches = decode(params, db, caches, s + i)
+            runs[str(dev)].append((logits, None))
+    cpu, card = runs["cpu"], runs[str(cuda)]
+    for name, ref in cpu[0][1].items():
+        torch.testing.assert_close(card[0][1][name].cpu(), ref, **LM_TOL, msg=name)
+    for i, ((lc, _), (lg, _)) in enumerate(zip(cpu, card)):
+        torch.testing.assert_close(lg.cpu(), lc, **LM_TOL, msg=f"step {i}")
+        assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), f"greedy token, step {i}"

@@ -170,8 +170,8 @@ def _fresh(code: str) -> subprocess.CompletedProcess:
 
 def test_relational_imports_before_core_and_without_jax():
     """``repro_torch.relational`` imports first in a fresh interpreter (the
-    reference raises ImportError there), and nothing of the port pulls in
-    JAX or the JAX package."""
+    reference raises ImportError there), and nothing of the port, the LM
+    stack included, pulls in JAX or the JAX package."""
     code = (
         "import sys\n"
         "import repro_torch.relational\n"
@@ -189,6 +189,11 @@ def test_relational_imports_before_core_and_without_jax():
         "import repro_torch.core.distributed\n"
         "from repro_torch.core import distributed\n"
         "from repro_torch.serve import TreantServer, ServerSession, QueueFull, ServeStats\n"
+        "import repro_torch.configs\n"
+        "import repro_torch.models.lm\n"
+        "import repro_torch.models.convert\n"
+        "import repro_torch.runtime.step\n"
+        "import repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print('BAD', bad)\n"
