@@ -163,7 +163,29 @@ CUDA toolkit.  Phases:
     TB/s, operations over 989 TFLOP/s), tokens/s, peak device memory and
     one profiled decode step; zamba2-1.2b at full size through
     ``repro_torch.launch.serve.main`` on the default device, float32:
-    (4, 33) tokens, all in the vocabulary.
+    (4, 33) tokens, all in the vocabulary;
+19. LM training phase (``repro_torch.models`` / ``optim`` / ``runtime.step``
+    / ``launch.train``, float32, TF32 off): (a) ``flash_attention``'s
+    backward at granite-moe-1b-a400m's and stablelm-12b's head widths
+    (batch 2, sequence 2048, chunks 512), causal with a query offset,
+    non-causal and ``attn_mode="divide"`` (which differentiates through
+    lse), against autograd through a naive attention on the card, each
+    gradient element within 1e-3 of itself plus 1e-4 of its tensor's
+    largest; (b) one train step of each of the ten smoke configs on the
+    card against the CPU (the loss to rtol 1e-5, every gradient leaf to
+    1e-3 of itself plus 5e-4 of its leaf's largest, AdamW on the CPU's
+    gradients to rtol 1e-5 / atol 1e-7, the bf16 first moment to one bf16
+    ulp); (c) granite-moe-1b-a400m at full
+    size (1.385 B parameters, float32 parameters and moments), batch 4 x
+    2048, ``remat="full"``, lr 3e-4: one untimed and 8 timed steps on one
+    batch, ms per step beside its bound (operations over 67 TFLOP/s
+    float32, bytes over 3.35 TB/s), the peak with ``remat`` full and none,
+    one profiled step, the loss falling; stablelm-12b's state reckoned, not
+    run; (d) ``repro_torch.launch.train.main`` at smoke size on the card
+    with a failure injected at step 6 and the telemetry dashboard (every
+    segment-kernel launch held against its plain version, counted from 0 as
+    ``launches_train``), restored from step 4, then the run without the
+    failure: its losses from step 4 on within rtol 1e-4.
 
 Two times go with every kernel: ``ms``, wrapper calls back to back between
 CUDA events (what the main path pays, host cost included), and
@@ -186,6 +208,7 @@ import json
 import math
 import statistics
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -821,14 +844,17 @@ def print_latencies(label: str, gpu: dict, cpu: dict) -> None:
               f"({cpu['latency_s'][name] * 1e3:.3f} ms on the CPU)", flush=True)
 
 
-def profile_phase(torch, label: str, run, report: dict) -> None:
+def profile_phase(torch, label: str, run, report: dict, cpu_ops: bool = True) -> None:
     """One more run on the card under ``torch.profiler``: device time by
     kernel (and copy) and the device's busy share of the run's wall time
-    (the profiler slows the host, so the share is a lower bound)."""
+    (the profiler slows the host, so the share is a lower bound).  Without
+    ``cpu_ops`` only the device is traced: a run of hundreds of thousands of
+    host ops then costs the profiler little to record and to read back."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -3332,6 +3358,353 @@ def _lm_map(tree, fn):
     return fn(tree)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: LM training (flash backward, train steps, full size, launch.train)
+# ---------------------------------------------------------------------------
+
+# (arch whose heads are used, q heads, kv heads, d_head)
+TRAIN_FLASH_HEADS = (("granite-moe-1b-a400m", 16, 8, 64), ("stablelm-12b", 32, 8, 160))
+TRAIN_FLASH_SHAPE = (2, 2048, 512)  # batch, sequence, q and kv chunk: 4 x 4 blocks per pass
+TRAIN_FLASH_OFFSET = 512           # the causal case's query offset (keys start at 0)
+# float32 sums over 2048 keys (Higham and Mary's λ·√n·u, u = 2^-24, is 1.1e-5 at
+# λ = 4) chained through the backward's four contractions and exp: each
+# gradient element within 1e-3 of itself plus 1e-4 of its tensor's largest
+FLASH_RTOL, FLASH_ATOL_OF_MAX = 1e-3, 1e-4
+TRAIN_SMOKE = (2, 32)              # batch, sequence of the ten smoke configs' train steps
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL_OF_MAX = 1e-3, 5e-4   # card against CPU, per gradient leaf
+# AdamW on identical gradients: float32 leaves to rtol 1e-5 / atol 1e-7; the
+# bfloat16 first moment to one bf16 ulp (2^-7 of the value at most), since
+# float32 values one ulp apart on the two devices can round to either neighbour
+TRAIN_ADAMW_TOL = {"float32": dict(rtol=1e-5, atol=1e-7), "bfloat16": dict(rtol=2.0 ** -7, atol=0.0),
+                   "int32": dict(rtol=0.0, atol=0.0)}
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_FULL = (4, 2048)             # batch, sequence of the full-size train step
+TRAIN_STEPS = 8                    # timed steps, after one untimed
+TRAIN_LR = 3e-4
+TRAIN_NONE_CUT = 12                # remat "none": the depth tried if the full depth does not fit
+# launch.train's run (the reference test's, on the card), failing at TRAIN_FAIL_AT
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "12", "--batch", "2", "--seq", "32",
+                "--ckpt-every", "4", "--log-every", "5"]
+TRAIN_FAIL_AT = 6
+TRAIN_RESTORED = 4                 # the last checkpoint before the failure
+# losses of the run again without the failure, from the restored step on: the
+# card's backward adds with atomics (embedding rows, index_put_), so later
+# steps may differ in the last bits of the float32 gradients
+TRAIN_RERUN_RTOL = 1e-4
+
+
+def naive_attention(torch, q, k, v, causal: bool, q_off: int = 0, k_off: int = 0):
+    """Autograd oracle: the whole (Sq, Sk) score matrix, its softmax and lse."""
+    b, sq, h, dh = q.shape
+    sk, g = k.shape[1], h // k.shape[2]
+    ke, ve = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+    s = torch.einsum("bqhd,bthd->bhqt", q / math.sqrt(dh), ke)
+    if causal:
+        dev = q.device
+        mask = (q_off + torch.arange(sq, device=dev))[:, None] >= (k_off + torch.arange(
+            sk, device=dev))[None, :]
+        s = torch.where(mask[None, None], s, -1e30)
+    o = torch.einsum("bhqt,bthd->bqhd", torch.softmax(s, -1), ve)
+    return o, torch.logsumexp(s, -1).transpose(1, 2)
+
+
+def grad_errs(torch, got, want, names) -> dict:
+    """Each gradient against its reference: its largest absolute error and
+    that error over the reference's largest element; fails past
+    |err| ≤ FLASH_RTOL·|ref| + FLASH_ATOL_OF_MAX·max|ref|."""
+    out = {}
+    for name, g, w in zip(names, got, want):
+        scale = float(w.abs().max())
+        bad = (g - w).abs() > FLASH_RTOL * w.abs() + FLASH_ATOL_OF_MAX * scale
+        err = max_abs_err(g, w)
+        check(not bool(bad.any()), f"{name}: {int(bad.sum())} elements off, max |err| {err:.3g} "
+              f"(largest |ref| {scale:.3g})")
+        out[name] = {"max_abs_err": err, "of_max": err / scale if scale else 0.0}
+    return out
+
+
+def train_flash(torch, np, LM) -> dict:
+    """(a) flash_attention's backward at full width on the card against
+    autograd through a naive attention, float32, TF32 off."""
+    b, s, c = TRAIN_FLASH_SHAPE
+    rec = {}
+    for arch, h, kh, dh in TRAIN_FLASH_HEADS:
+        rng = np.random.default_rng(h * dh)
+        arrays = [rng.standard_normal(shape).astype(np.float32)
+                  for shape in ((b, s, h, dh), (b, s, kh, dh), (b, s, kh, dh), (b, s, h))]
+        for case in ("causal_offset", "non_causal", "divide"):
+            t0 = time.perf_counter()
+            q, k, v = (torch.tensor(a, device="cuda", requires_grad=True) for a in arrays[:3])
+            w = torch.tensor(arrays[3], device="cuda") * 0.1
+            causal = case != "non_causal"
+            q_off = TRAIN_FLASH_OFFSET if case == "causal_offset" else 0
+            if case == "divide":
+                o = LM.layers.causal_attention(q, k, v, mode="divide", q_chunk=c, kv_chunk=c,
+                                               min_block=s // 2)
+                loss = o.sin().sum()
+            else:
+                o, lse = LM.layers.flash_attention(q, k, v, causal, c, c, q_off, 0)
+                loss = o.sin().sum() + (lse * w).cos().sum()
+            got = torch.autograd.grad(loss, (q, k, v))
+            del o, loss
+            q2, k2, v2 = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+            o2, lse2 = naive_attention(torch, q2, k2, v2, causal, q_off, 0)
+            loss2 = o2.sin().sum() + ((lse2 * w).cos().sum() if case != "divide" else 0.0)
+            want = torch.autograd.grad(loss2, (q2, k2, v2))
+            del o2, lse2, loss2
+            errs = grad_errs(torch, got, want, ("dq", "dk", "dv"))
+            rec[f"{arch}/{case}"] = dict(errs, seconds=time.perf_counter() - t0)
+            print(f"  flash backward {arch} heads {h}/{kh} d_head {dh}, {b}x{s}, chunks {c}, "
+                  f"{case}: " + ", ".join(f"{n} max |err| {e['max_abs_err']:.3g} "
+                                          f"({e['of_max']:.2g} of max)" for n, e in errs.items())
+                  + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+            del got, want, q, k, v, q2, k2, v2
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_smoke(torch, np, LM) -> dict:
+    """(b) one train step of every smoke config on the card against the CPU:
+    the loss and every gradient leaf, then AdamW on the CPU's gradients."""
+    b, s = TRAIN_SMOKE
+    rec = {}
+    for arch in LM.ALL_ARCHS:
+        t0 = time.perf_counter()
+        cfg = LM.smoke_config(LM.get_config(arch))
+        tree = lm_random_tree(np, LM, cfg, 1)
+        runs = {dev: LM.step.loss_and_grads(cfg, LM.convert.params_from_reference(cfg, tree, dev),
+                                            dict(lm_batch(torch, np, cfg, b, s, 2, dev),
+                                                 labels=torch.as_tensor(np.random.default_rng(
+                                                     3).integers(0, cfg.vocab, (b, s)), device=dev)))
+                for dev in ("cpu", "cuda")}
+        (lc, _, paths, gcpu), (lg, _, _, ggpu) = runs["cpu"], runs["cuda"]
+        check(bool(torch.isfinite(lg)), f"{arch}: the card's loss is not finite")
+        loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+        check(loss_err <= 1e-5, f"{arch}: loss {float(lg)} on the card, {float(lc)} on the CPU")
+        worst = 0.0
+        for path, a, g in zip(paths, gcpu, ggpu):
+            scale = float(a.abs().max())
+            bad = (g.cpu() - a).abs() > TRAIN_GRAD_RTOL * a.abs() + TRAIN_GRAD_ATOL_OF_MAX * scale
+            check(not bool(bad.any()), f"{arch}: gradient {'/'.join(path)} differs from the CPU "
+                  f"by {max_abs_err(g.cpu(), a):.3g} (largest |ref| {scale:.3g})")
+            worst = max(worst, max_abs_err(g.cpu(), a) / scale if scale else 0.0)
+        opt_cfg = LM.adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=1)
+        upd = {}
+        for dev in ("cpu", "cuda"):
+            params = LM.convert.params_from_reference(cfg, tree, dev)
+            grads = LM.tree.from_paths(paths, [t.to(dev) for t in gcpu])
+            upd[dev] = LM.adamw.apply_updates(params, grads, LM.adamw.init_opt_state(params, opt_cfg),
+                                              opt_cfg)
+        adam_err = 0.0
+        for part in (0, 1):
+            ref = dict(LM.tree.paths(upd["cpu"][part]))
+            for path, t in LM.tree.paths(upd["cuda"][part]):
+                tol = TRAIN_ADAMW_TOL[str(t.dtype).removeprefix("torch.")]
+                check(torch.allclose(t.cpu().float(), ref[path].float(), **tol),
+                      f"{arch}: AdamW {'/'.join(path)} differs from the CPU by "
+                      f"{max_abs_err(t.cpu().float(), ref[path].float()):.3g}")
+                adam_err = max(adam_err, max_abs_err(t.cpu().float(), ref[path].float()))
+        rec[arch] = {"loss_rel_err": loss_err, "grad_err_of_max": worst,
+                     "adamw_max_abs_err": adam_err, "seconds": time.perf_counter() - t0}
+        print(f"  {arch} smoke train step: card = CPU, loss rel err {loss_err:.2g}, gradients "
+              f"{worst:.2g} of each leaf's max, AdamW max |err| {adam_err:.2g} "
+              f"({rec[arch]['seconds']:.1f} s)", flush=True)
+    return rec
+
+
+def train_work(cfg, b: int, s: int, n_params: int) -> dict:
+    """Least work of one train step of a uniform-pattern model in float32:
+    forward and backward (3 × the forward's multiply-adds, 2 operations
+    each; the recomputation of remat is not counted) of the block matmuls
+    with each token through its top-k experts, the head, and causal
+    attention over the pairs a sequence needs; bytes: the parameters read
+    twice (forward, backward) and their gradients written, then AdamW
+    reading parameters, gradients and both moments and writing parameters
+    and moments (float32 each), plus the tokens and labels."""
+    d, t = cfg.d_model, b * s
+    attn = d * cfg.d_attn + 2 * d * cfg.n_kv_heads * cfg.d_head + cfg.d_attn * d
+    if cfg.moe is not None:
+        per_token = attn + d * cfg.moe.n_experts + cfg.moe.top_k * 3 * d * cfg.moe.d_ff
+    else:
+        per_token = attn + (3 if cfg.mlp == "swiglu" else 2) * d * cfg.d_ff
+    macs = t * (per_token * cfg.n_layers + d * cfg.vocab)
+    pairs = b * s * (s + 1) // 2
+    flops = 3 * (2 * macs + 4 * pairs * cfg.d_attn * cfg.n_layers)
+    nbytes = 4 * n_params * (3 + 7) + 2 * t * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def train_full(torch, np, LM, report: dict) -> dict:
+    """(c) granite-moe-1b-a400m at full size, float32 parameters and
+    moments, ``remat="full"``: one untimed step, then TRAIN_STEPS timed
+    steps on one repeated batch; one profiled step; the peak once more with
+    ``remat="none"``."""
+    cfg = LM.get_config(TRAIN_ARCH)
+    b, s = TRAIN_FULL
+    torch.cuda.reset_peak_memory_stats()
+    params = LM.lm.init_params(cfg, 0, device="cuda")
+    n_params = sum(t.numel() for t in _lm_leaves(params))
+    check(n_params == cfg.n_params(), f"{TRAIN_ARCH} has {n_params} parameters, n_params() says "
+          f"{cfg.n_params()}")
+    opt_cfg = LM.adamw.AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=1, total_steps=1000,
+                                   m_dtype="float32")
+    opt = LM.adamw.init_opt_state(params, opt_cfg)
+    state_mib = 3 * sum(t.numel() * t.element_size() for t in _lm_leaves(params)) / 2**20
+    rng = np.random.default_rng(5)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)), dtype=torch.int32,
+                                device="cuda") for k in ("tokens", "labels")}
+    step_fn = LM.step.make_train_step(cfg, opt_cfg, donate=True)
+    probe = params["layers"]["attn"]["wq"][0, :4, :4].clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, m = step_fn(params, opt, batch)                  # untimed
+    losses = [float(m["loss"])]
+    first_s = time.perf_counter() - t0
+    check(not torch.equal(probe, params["layers"]["attn"]["wq"][0, :4, :4]),
+          f"{TRAIN_ARCH}: one step left the parameters where they were")
+    times = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))                          # syncs
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_full = torch.cuda.max_memory_allocated() / 2**20
+    check(all(math.isfinite(x) for x in losses), f"{TRAIN_ARCH}: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{TRAIN_ARCH}: loss did not fall over {TRAIN_STEPS} steps: "
+          f"{losses}")
+    work = train_work(cfg, b, s, n_params)
+    profile_phase(torch, "train_step", lambda: step_fn(params, opt, batch), report, cpu_ops=False)
+    prof = report.get("profile", {}).get("train_step", {})
+    busy = prof.get("device_busy_ms", 0.0) / prof["wall_ms"] if prof.get("wall_ms") else None
+
+    # the peak without rematerialization: full depth if it fits
+    none_rec = {}
+    for depth in (cfg.n_layers, TRAIN_NONE_CUT):
+        ncfg = dataclasses.replace(cfg, remat="none", n_layers=depth)
+        if depth != cfg.n_layers:
+            params = {**params, "layers": _lm_map(params["layers"], lambda t: t[:depth].clone())}
+            opt = LM.adamw.init_opt_state(params, opt_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            LM.step.make_train_step(ncfg, opt_cfg, donate=True)(params, opt, batch)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            none_rec[f"layers_{depth}"] = f"out of memory: {str(e).splitlines()[0]}"
+            print(f"  remat none at {depth} layers: out of memory", flush=True)
+            continue
+        none_rec.update(layers=depth, peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                        cut=None if depth == cfg.n_layers else f"n_layers {cfg.n_layers} -> {depth}")
+        break
+    check("peak_mib" in none_rec, f"remat none ran out of memory even at {TRAIN_NONE_CUT} layers")
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    big = LM.get_config("stablelm-12b")
+    ms = statistics.mean(times)
+    rec = {"arch": TRAIN_ARCH, "params": n_params, "batch": b, "seq": s, "remat": cfg.remat,
+           "lr": TRAIN_LR, "state_mib": state_mib, "first_step_s": first_s,
+           "ms_per_step": ms, "ms_runs": times, "work": work, "losses": losses,
+           "peak_mib_remat_full": peak_full, "remat_none": none_rec, "device_busy_share": busy,
+           "stablelm_12b_state_gb": 10 * big.n_params() / 1e9}
+    print(f"  {TRAIN_ARCH} full size, {cfg.n_layers} layers, {n_params:,} parameters, float32 "
+          f"parameters and moments ({state_mib:,.1f} MiB with the gradients' third), batch "
+          f"{b}x{s}, remat {cfg.remat}, lr {TRAIN_LR}", flush=True)
+    print(f"  train step: {ms:.1f} ms (runs {', '.join(f'{t:.1f}' for t in times)}; first "
+          f"{first_s:.2f} s); bound {work['bound_ms']:.1f} ms ({work['bound_by']}: "
+          f"{work['flops'] / 1e12:.2f} TFLOP at 67 TFLOP/s float32, {work['bytes'] / 1e9:.2f} GB)",
+          flush=True)
+    print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps; peak "
+          f"{peak_full:,.1f} MiB (remat full), {none_rec['peak_mib']:,.1f} MiB (remat none, "
+          f"{none_rec['layers']} layers); device busy "
+          + ("not measured" if busy is None else f"{100 * busy:.1f} %") + " of a profiled step",
+          flush=True)
+    print(f"  stablelm-12b not trained here: {big.n_params() / 1e9:.2f} B parameters x 10 B "
+          f"(bf16 parameters, gradients and m; float32 v) = {rec['stablelm_12b_state_gb']:.1f} GB "
+          f"of state, above the card's 80 GB", flush=True)
+    return rec
+
+
+def train_entry(torch, K, L, LM) -> dict:
+    """(d) ``repro_torch.launch.train.main`` on the card with an injected
+    failure and the telemetry dashboard (every segment-kernel launch held
+    against its plain version, counted from 0 as ``launches_train``), then
+    the same run without the failure."""
+    ckpt_root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    argv = TRAIN_ARGV + ["--inject-failure", str(TRAIN_FAIL_AT), "--telemetry-dashboard",
+                           "--ckpt-dir", str(ckpt_root / "failed")]
+    audit: dict = {}
+    try:
+        reset_launches(K)
+        t0 = time.perf_counter()
+        with kernel_audit(torch, K, L, audit, exact=False):
+            failed = LM.train.main(argv)
+        wall = time.perf_counter() - t0
+        launches = read_launches(K)
+        plain = LM.train.main(TRAIN_ARGV + ["--ckpt-dir", str(ckpt_root / "plain")])
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    check(all(math.isfinite(x) for x in failed + plain), "launch.train's losses are not finite")
+    check(len(failed) == len(plain) + TRAIN_FAIL_AT - TRAIN_RESTORED,
+          f"launch.train ran {len(failed)} steps with the failure, {len(plain)} without")
+    after = failed[TRAIN_FAIL_AT:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(after, plain[TRAIN_RESTORED:]))
+    check(rel <= TRAIN_RERUN_RTOL, f"losses after the restore differ from the run without the "
+          f"failure by {rel:.3g} relative")
+    for name in CONTRACT:
+        # the dashboard's bags are sparse (dense_rows_threshold=0): a contract
+        # launch here would be one that the audit below does not hold
+        check(launches[name] == 0, f"the telemetry dashboard launched {name} "
+              f"{launches[name]} times, unaudited")
+    for name in SEGMENT:
+        check(launches[name] > 0, f"the telemetry dashboard launched no {name}")
+        # every launch is audited (a wrapper call with no rows launches nothing)
+        check(audit[name]["checked"] >= launches[name],
+              f"{name}: {audit[name]['checked']} audited of {launches[name]} launches")
+    print(f"  launch.train.main {' '.join(argv[:-2])} on cuda: {len(failed)} steps run in "
+          f"{wall:.2f} s, restored step {TRAIN_RESTORED}, losses {failed[0]:.4f} -> "
+          f"{failed[-1]:.4f}; the run without the failure agrees from step {TRAIN_RESTORED} on "
+          f"to {rel:.3g} relative ({'bit-equal' if after == plain[TRAIN_RESTORED:] else 'not bit-equal'})",
+          flush=True)
+    print_audit("  train dashboard", audit, 0.0)
+    return {"argv": argv, "losses_failed": failed, "losses_plain": plain, "rerun_rel": rel,
+            "bit_equal": after == plain[TRAIN_RESTORED:], "launches": launches,
+            "audit": {k: audit[k] for k in SEGMENT}, "wall_s": wall}
+
+
+def train_phase(torch, np, K, L, LM, report: dict) -> dict:
+    """Phase 19: (a) flash backward at full width, (b) the smoke configs'
+    train steps against the CPU, (c) granite-moe-1b-a400m at full size,
+    (d) launch.train with a failure and the telemetry dashboard."""
+    started = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec: dict = {"seconds": {}}
+    parts = (("flash", lambda: train_flash(torch, np, LM)),
+             ("smoke", lambda: train_smoke(torch, np, LM)),
+             ("full", lambda: train_full(torch, np, LM, report)),
+             ("entry", lambda: train_entry(torch, K, L, LM)))
+    try:
+        for name, run in parts:
+            t0 = time.perf_counter()
+            rec[name] = run()
+            rec["seconds"][name] = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    rec["launches"] = rec["entry"]["launches"]
+    rec["wall_s"] = time.perf_counter() - started
+    print(f"  phase 19: {rec['wall_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in rec["seconds"].items()) + ")", flush=True)
+    report["train"] = rec
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -3375,10 +3748,14 @@ def main() -> int:
     from repro_torch.relational.sql import parse
     from repro_torch.serve import ServeStats, TreantServer
     from repro_torch import configs as lm_configs
+    from repro_torch import tree as lm_tree
     from repro_torch.configs.base import smoke_config
     from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import train as lm_train
     from repro_torch.models import convert as lm_convert
+    from repro_torch.models import layers as lm_layers
     from repro_torch.models import lm
+    from repro_torch.optim import adamw as lm_adamw
     from repro_torch.runtime import step as lm_step
 
     K = types.SimpleNamespace(
@@ -3400,7 +3777,8 @@ def main() -> int:
                               FeatureSpec=FeatureSpec)
     LM = types.SimpleNamespace(ALL_ARCHS=lm_configs.ALL_ARCHS, get_config=lm_configs.get_config,
                                smoke_config=smoke_config, lm=lm, convert=lm_convert,
-                               step=lm_step, serve=lm_serve)
+                               step=lm_step, serve=lm_serve, layers=lm_layers, adamw=lm_adamw,
+                               train=lm_train, tree=lm_tree)
     report: dict = {}
     started = time.perf_counter()
     try:
@@ -3459,6 +3837,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         print("LM serving (phase 18):", flush=True)
         lm_phase(torch, np, LM, report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("LM training (phase 19):", flush=True)
+        trained = train_phase(torch, np, K, L, LM, report)
+        for r in records:
+            r["launches_train"] = trained["launches"][r["name"]]
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

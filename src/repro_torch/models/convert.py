@@ -5,8 +5,11 @@ Both packages lay parameters out the same way (``lm.param_specs``: nested
 dicts, stacked leading layer/group axes, projections shaped (d_in, d_out)),
 so a conversion checks every leaf's path and shape against the specs and
 moves the values; nothing is transposed or unstacked.  The reference side
-is numpy arrays (``np.asarray`` of a JAX array).  numpy has no bfloat16:
-``*_to_reference`` widens a bfloat16 tensor to float32, exactly.
+is numpy arrays (``np.asarray`` of a JAX array; a bfloat16 one, an
+``ml_dtypes`` array, is read through its 16-bit pattern).  numpy has no
+bfloat16 of its own: ``*_to_reference`` widens a bfloat16 tensor to
+float32, exactly.  The optimizer state (``m``, ``v`` and ``step``) crosses
+the same way, each moment in its own dtype.
 """
 
 from __future__ import annotations
@@ -42,7 +45,11 @@ def _check(specs: dict, tree: dict, what: str) -> None:
 def _to_torch(tree, dev, dtype):
     if isinstance(tree, dict):
         return {k: _to_torch(v, dev, dtype) for k, v in tree.items()}
-    x = torch.from_numpy(np.array(tree, copy=True))
+    a = np.array(tree, copy=True)
+    if a.dtype.name == "bfloat16":          # an ml_dtypes array: its 16-bit pattern
+        x = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        x = torch.from_numpy(a)
     return x.to(device=dev, dtype=dtype or x.dtype)
 
 
@@ -85,3 +92,28 @@ def _check_caches(cfg, tree: dict) -> None:
     batch = shape[-2] if cfg.pattern == "rwkv" else shape[-4]
     seq = 0 if cfg.pattern == "rwkv" else shape[-3]
     _check(lm.cache_specs(cfg, batch, seq), tree, "caches")
+
+
+def opt_state_from_reference(cfg, tree: dict, device=None, dtype=None) -> dict:
+    """The reference's AdamW state ``{"m", "v", "step"}`` (numpy leaves; m
+    and v shaped like the parameters) as the port's on ``device`` (``cuda``
+    unless the caller passes another).  m and v keep their own dtypes unless
+    ``dtype`` is given; ``step`` is an int32 scalar."""
+    if set(tree) != {"m", "v", "step"}:
+        raise ValueError(f"an optimizer state has m, v and step, got {sorted(tree)}")
+    specs = lm.param_specs(cfg)
+    _check(specs, tree["m"], "first moments")
+    _check(specs, tree["v"], "second moments")
+    dev = resolve_device(device)
+    return {"m": _to_torch(tree["m"], dev, dtype), "v": _to_torch(tree["v"], dev, dtype),
+            "step": torch.tensor(np.array(tree["step"], dtype=np.int32), device=dev)}
+
+
+def opt_state_to_reference(cfg, state: dict) -> dict:
+    """The port's AdamW state as the reference's pytree of numpy arrays
+    (bfloat16 moments widened to float32)."""
+    specs = lm.param_specs(cfg)
+    _check(specs, state["m"], "first moments")
+    _check(specs, state["v"], "second moments")
+    return {"m": _to_numpy(state["m"]), "v": _to_numpy(state["v"]),
+            "step": np.asarray(state["step"].detach().cpu().numpy(), dtype=np.int32)}

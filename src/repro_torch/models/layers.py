@@ -1,5 +1,5 @@
 """Transformer building blocks: norms, RoPE, GQA attention (chunked online
-softmax for prefill, cache attention for decode), MLP variants, MoE.
+softmax for train and prefill, cache attention for decode), MLP variants, MoE.
 
 All functions are pure; parameters are dicts of tensors laid out as
 ``lm.param_specs`` describes them (a projection ``W`` is (d_in, d_out) and
@@ -14,15 +14,17 @@ Attention compute modes:
     half the FLOPs.
 
 Attention, like the rest of the LM stack, is plain PyTorch: no library
-attention kernel stands in for the chunked algorithm.
+attention kernel stands in for the chunked algorithm, forward or backward.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -54,8 +56,11 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# Attention — chunked online softmax.  Returns (o, lse); lse lets partial
-# attentions merge (the causal-divide decomposition).
+# Attention — chunked online softmax with a hand-written backward, so neither
+# the score matrices nor per-chunk softmax residuals are ever saved: the
+# forward keeps only (q, k, v, o, lse); the backward re-streams the
+# (q chunk × kv chunk) blocks.  Returns (o, lse); lse lets partial attentions
+# merge (the causal-divide decomposition), which differentiates through it.
 # ---------------------------------------------------------------------------
 
 def _expand_kv(x, g):
@@ -71,13 +76,13 @@ def _n_chunks(s: int, chunk: int) -> tuple[int, int]:
     return n, s // n
 
 
-def flash_attention(q, k, v, causal=True, q_chunk=512, kv_chunk=512, q_off=0, k_off=0):
-    """Exact attention in (q chunk × kv chunk) blocks with an online softmax.
+def _causal_mask(q_off, qi, qc, k_off, kj, kc, dev):
+    qpos = q_off + qi * qc + torch.arange(qc, device=dev)
+    kpos = k_off + kj * kc + torch.arange(kc, device=dev)
+    return (qpos[:, None] >= kpos[None, :])[None, None]
 
-    q (B, Sq, H, dh), k/v (B, Sk, K, dh).  Returns (o in q's dtype, lse
-    (B, Sq, H) in float32).  Query i sits at position ``q_off + i`` and key
-    j at ``k_off + j`` for the causal mask.
-    """
+
+def _flash_fwd(q, k, v, causal, q_chunk, kv_chunk, q_off, k_off):
     b, sq, h, dh = q.shape
     sk, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -91,7 +96,6 @@ def flash_attention(q, k, v, causal=True, q_chunk=512, kv_chunk=512, q_off=0, k_
     outs, lses = [], []
     for qi in range(qc_n):
         qb = qs[:, qi * qc:(qi + 1) * qc]
-        qpos = q_off + qi * qc + torch.arange(qc, device=dev)
         o = torch.zeros((b, qc, h, dh), dtype=torch.float32, device=dev)
         m = torch.full((b, qc, h), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((b, qc, h), dtype=torch.float32, device=dev)
@@ -100,8 +104,7 @@ def flash_attention(q, k, v, causal=True, q_chunk=512, kv_chunk=512, q_off=0, k_
             vb = _expand_kv(vs[:, kj * kc:(kj + 1) * kc], g)
             s = torch.einsum("bqhd,bthd->bhqt", qb, kb)
             if causal:
-                kpos = k_off + kj * kc + torch.arange(kc, device=dev)
-                s = torch.where((qpos[:, None] >= kpos[None, :])[None, None], s, NEG_INF)
+                s = torch.where(_causal_mask(q_off, qi, qc, k_off, kj, kc, dev), s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1).transpose(1, 2))
             p = torch.exp(s - m_new.transpose(1, 2)[..., None])
             corr = torch.exp(m - m_new)
@@ -113,6 +116,86 @@ def flash_attention(q, k, v, causal=True, q_chunk=512, kv_chunk=512, q_off=0, k_
     o = torch.cat(outs, dim=1)
     lse = torch.cat(lses, dim=1)
     return o.to(q.dtype), lse
+
+
+def _flash_bwd(q, k, v, o, lse, do, dlse, causal, q_chunk, kv_chunk, q_off, k_off):
+    """The reference's ``_flash_bwd``: p from the saved lse, ds = p·(dp − Δ)
+    (+ p·dlse when lse has a cotangent), dk/dv accumulated per kv chunk with
+    the GQA head groups folded back onto their kv heads."""
+    b, sq, h, dh = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = 1.0 / math.sqrt(dh)
+    qc_n, qc = _n_chunks(sq, q_chunk)
+    kc_n, kc = _n_chunks(sk, kv_chunk)
+    dev = q.device
+    do32 = do.float()
+    delta = (do32 * o.float()).sum(-1)                              # (B, Sq, H)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    dq = torch.empty((b, sq, h, dh), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, sk, kh, dh), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, sk, kh, dh), dtype=torch.float32, device=dev)
+    for qi in range(qc_n):
+        rows = slice(qi * qc, (qi + 1) * qc)
+        qb, dob = q32[:, rows], do32[:, rows]
+        lseb = lse[:, rows].transpose(1, 2)[..., None]              # (B, H, qc, 1)
+        delb = delta[:, rows].transpose(1, 2)[..., None]
+        dlb = None if dlse is None else dlse[:, rows].float().transpose(1, 2)[..., None]
+        dqb = torch.zeros((b, qc, h, dh), dtype=torch.float32, device=dev)
+        for kj in range(kc_n):
+            cols = slice(kj * kc, (kj + 1) * kc)
+            kbe = _expand_kv(k32[:, cols], g)
+            vbe = _expand_kv(v32[:, cols], g)
+            s = torch.einsum("bqhd,bthd->bhqt", qb * scale, kbe)
+            if causal:
+                s = torch.where(_causal_mask(q_off, qi, qc, k_off, kj, kc, dev), s, NEG_INF)
+            p = torch.exp(s - lseb)                                 # (B, H, qc, kc)
+            dv_blk = torch.einsum("bhqt,bqhd->bthd", p, dob)        # (B, kc, H, dh)
+            dp = torch.einsum("bqhd,bthd->bhqt", dob, vbe)
+            ds = p * (dp - delb)
+            if dlb is not None:
+                ds = ds + p * dlb
+            dqb = dqb + torch.einsum("bhqt,bthd->bqhd", ds, kbe) * scale
+            dk_blk = torch.einsum("bhqt,bqhd->bthd", ds, qb) * scale
+            # GQA: fold the head-group dim back onto the kv heads
+            dk[:, cols] += dk_blk.reshape(b, kc, kh, g, dh).sum(3)
+            dv[:, cols] += dv_blk.reshape(b, kc, kh, g, dh).sum(3)
+        dq[:, rows] = dqb
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk, q_off, k_off):
+        o, lse = _flash_fwd(q, k, v, causal, q_chunk, kv_chunk, q_off, k_off)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, q_chunk, kv_chunk, q_off, k_off)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        with torch.no_grad():
+            dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, dlse, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, causal=True, q_chunk=512, kv_chunk=512, q_off=0, k_off=0):
+    """Exact attention in (q chunk × kv chunk) blocks with an online softmax,
+    memory O(S·d) forward and backward.
+
+    q (B, Sq, H, dh), k/v (B, Sk, K, dh).  Returns (o in q's dtype, lse
+    (B, Sq, H) in float32).  Query i sits at position ``q_off + i`` and key
+    j at ``k_off + j`` for the causal mask.  Differentiable in q, k and v
+    through both outputs; without a gradient to record it runs the forward
+    loop alone.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk, q_off, k_off)
+    return _flash_fwd(q, k, v, causal, q_chunk, kv_chunk, q_off, k_off)
 
 
 def _merge_attn(a, b):
@@ -279,28 +362,32 @@ def _capacity_slots(onehot, cap: int):
 def _moe_groups(xt, p, cfg, g: int, cap: int):
     """Dispatch + expert compute + combine for a slab of token groups.
 
-    xt: (ng, g, d).  Returns (y (ng, g, d), aux scalar).
+    xt: (ng, g, d).  Returns (y (ng, g, d), aux scalar).  The reference's
+    einsums as batched matmuls: dispatch and combine per group over the
+    (expert, slot) axis, the experts over every group's slots at once.
     """
     moe = cfg.moe
     e, k = moe.n_experts, moe.top_k
-    ng = xt.shape[0]
-    logits = torch.einsum("ngd,de->nge", xt, p["router"]).float()
+    ng, _, d = xt.shape
+    logits = (xt @ p["router"]).float()                            # (ng, g, e)
     gates = torch.softmax(logits, dim=-1)
     topv, topi = _top_k(gates, k)                                  # (ng, g, k)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
 
     onehot = F.one_hot(topi, e).float()                            # (ng, g, k, e)
     slot, in_cap = _capacity_slots(onehot, cap)
-    slot_oh = F.one_hot(slot, cap).to(xt.dtype) * in_cap[..., None].to(xt.dtype)
-    dispatch = slot_oh.sum(dim=2)                                  # (ng,g,e,cap)
-    combine = torch.einsum("ngkec,ngk->ngec", slot_oh, topv.to(xt.dtype))
+    slot_oh = (F.one_hot(slot, cap).to(xt.dtype) * in_cap[..., None].to(xt.dtype)
+               ).reshape(ng, g, k, e * cap)
+    dispatch = slot_oh.sum(dim=2)                                  # (ng, g, e·cap)
+    combine = (topv.to(xt.dtype)[:, :, None, :] @ slot_oh)[:, :, 0]  # (ng, g, e·cap)
 
-    xin = torch.einsum("ngec,ngd->necd", dispatch, xt)             # (ng,e,cap,d)
-    a = torch.einsum("necd,edf->necf", xin, p["w1"])
-    b = torch.einsum("necd,edf->necf", xin, p["w3"]) if cfg.mlp == "swiglu" else None
+    xin = dispatch.transpose(1, 2) @ xt                            # (ng, e·cap, d)
+    xe = xin.reshape(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
+    a = xe @ p["w1"]                                               # (e, ng·cap, f)
+    b = xe @ p["w3"] if cfg.mlp == "swiglu" else None
     hdn = F.silu(a) * b if cfg.mlp == "swiglu" else F.relu(a).square()
-    out = torch.einsum("necf,efd->necd", hdn, p["w2"])
-    y = torch.einsum("ngec,necd->ngd", combine, out)
+    out = (hdn @ p["w2"]).reshape(e, ng, cap, d).transpose(0, 1).reshape(ng, e * cap, d)
+    y = combine @ out                                              # (ng, g, d)
     return y, _load_balance_loss(gates, onehot)
 
 
@@ -309,7 +396,8 @@ def moe_block(x, p, cfg):
 
     Tokens are processed in groups of ``cfg.moe.group``, the groups in up to
     16 slabs (the reference's checkpointed scan); the aux loss is the mean
-    of the slabs'.
+    of the slabs'.  Under autograd each slab is checkpointed, so only one
+    slab's dispatch and expert intermediates are live at a time.
     """
     moe = cfg.moe
     b, s, d = x.shape
@@ -328,7 +416,10 @@ def moe_block(x, p, cfg):
     if steps <= 1:
         y, aux = _moe_groups(xt, p, cfg, g, cap)
         return y.reshape(b, s, d).to(x.dtype), aux
-    ys, auxs = zip(*(_moe_groups(slab, p, cfg, g, cap)
+    body = _moe_groups
+    if torch.is_grad_enabled():
+        body = functools.partial(checkpoint, _moe_groups, use_reentrant=False)
+    ys, auxs = zip(*(body(slab, p, cfg, g, cap)
                      for slab in xt.reshape(steps, ng // steps, g, d)))
     y = torch.cat(ys, dim=0)
     return y.reshape(b, s, d).to(x.dtype), torch.stack(auxs).mean()

@@ -7,8 +7,10 @@ forwards walk the layers with Python loops over views of those stacks.
 ``param_specs`` describes every leaf once as (shape, logical axes, init);
 the axes are kept for parity with the reference and unused on one device.
 
-``cfg.remat`` and ``cfg.scan_groups`` shape the reference's compiled
-programs, not a forward's result: they are accepted and ignored here.
+Under autograd, ``cfg.remat`` ("full", "dots", "none") and
+``cfg.scan_groups`` checkpoint the blocks where the reference rematerializes
+them (``torch.utils.checkpoint``); they change memory and time, not the
+result.  Prefill and decode run without autograd and never checkpoint.
 ``cfg.unroll_scans`` selects the batched-over-chunks form of the SSD and
 WKV scans, as in the reference (the same result).
 
@@ -19,12 +21,17 @@ caller's cache tensors in place and returns the same tensors.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plans import resolve_device
 
@@ -248,15 +255,6 @@ def map_specs(tree, fn, path=""):
     return {k: map_specs(v, fn, f"{path}/{k}") for k, v in tree.items()}
 
 
-def _leaves(tree):
-    """Leaves in the reference's pytree order (dict keys sorted)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    else:
-        yield tree
-
-
 def _at(tree, *idx):
     """One layer's (or group's) parameters: every leaf indexed by ``idx``."""
     if isinstance(tree, dict):
@@ -273,7 +271,7 @@ def _as_input(x, device):
 # ---------------------------------------------------------------------------
 
 def compute_dtype(params):
-    return next(_leaves(params)).dtype
+    return next(T.leaves(params)).dtype
 
 
 def embed_inputs(params, cfg: ModelConfig, batch):
@@ -332,37 +330,118 @@ def _cross_group(h, gp, cfg, vision=None, kv=None):
     return h, xkv
 
 
+# -- rematerialization ----------------------------------------------------------
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of matmuls
+    without batch dimensions, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_saveable():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """The reference's ``_remat``: ``fn`` checkpointed as ``cfg.remat`` says
+    ("none" → as it is; "dots" → matmul outputs saved; otherwise the whole
+    body recomputed in the backward).  Without autograd (prefill, decode,
+    ``no_grad``) ``fn`` runs as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=_dots_saveable)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 # -- mode: train / prefill ----------------------------------------------------
 
-def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
-    """Run all blocks. Returns (h, caches-or-None, aux_loss)."""
-    if cfg.pattern == "uniform":
-        aux, ks, vs = 0.0, [], []
-        for i in range(cfg.n_layers):
-            h, (k, v), a = _uniform_block(h, _at(params["layers"], i), cfg)
-            aux = aux + a
+def _vlm_group(h, gp, cfg, vision, collect_cache):
+    """One vlm group: its self layers, then the gated cross-attention and
+    MLP.  Returns (h, aux, caches): caches are ((k, v) stacked over the self
+    layers, (xk, xv)) when collected, else ``None``."""
+    aux, ks, vs = 0.0, [], []
+    for j in range(gp["self"]["ln1"].shape[0]):
+        h, (k, v), a = _uniform_block(h, _at(gp["self"], j), cfg)
+        aux = aux + a
+        if collect_cache:
             ks.append(k)
             vs.append(v)
+    h, xkv = _cross_group(h, gp, cfg, vision=vision)
+    if not collect_cache:
+        return h, aux, None
+    return h, aux, ((torch.stack(ks), torch.stack(vs)), xkv)
+
+
+def _zamba_group(h, sp, gp, cfg, collect_cache):
+    """The shared attention block, then one group's Mamba2 layers.  Returns
+    (h, caches): caches are ((k, v), conv states, ssm states) stacked over
+    the group's layers when collected, else ``None``."""
+    h, kv = _shared_block(h, sp, cfg)
+    convs, ssms = [], []
+    for j in range(gp["ln"].shape[0]):
+        h, st = _mamba_block(h, _at(gp, j), cfg)
+        if collect_cache:
+            convs.append(st["conv"])
+            ssms.append(st["ssm"])
+    if not collect_cache:
+        return h, None
+    return h, (kv, torch.stack(convs), torch.stack(ssms))
+
+
+def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
+    """Run all blocks. Returns (h, caches-or-None, aux_loss).  Under autograd
+    the blocks are checkpointed where the reference applies ``_remat``: per
+    layer (uniform, rwkv, zamba's tail), per group (vlm, zamba), and per
+    group of ``cfg.scan_groups`` layers around the per-layer checkpoints."""
+    if cfg.pattern == "uniform":
+        block = _remat(_uniform_block, cfg)
+        layers = params["layers"]
+        if cfg.scan_groups and not collect_cache:
+            # √L nesting: the outer checkpoint keeps only the group inputs
+            n_groups = cfg.scan_groups
+            if cfg.n_layers % n_groups:
+                raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of scan_groups "
+                                 f"{n_groups}")
+            per = cfg.n_layers // n_groups
+
+            def group(hh, aux, gi):
+                for i in range(gi * per, (gi + 1) * per):
+                    hh, _, a = block(hh, _at(layers, i), cfg)
+                    aux = aux + a
+                return hh, aux
+
+            outer, aux = _remat(group, cfg), 0.0
+            for gi in range(n_groups):
+                h, aux = outer(h, aux, gi)
+            return h, None, aux
+        aux, ks, vs = 0.0, [], []
+        for i in range(cfg.n_layers):
+            h, (k, v), a = block(h, _at(layers, i), cfg)
+            aux = aux + a
+            if collect_cache:
+                ks.append(k)
+                vs.append(v)
         caches = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
         return h, caches, aux
 
     if cfg.pattern == "vlm":
         vision = _as_input(batch["vision"], h.device).to(h.dtype)
-        n_groups, self_per = vlm_layout(cfg)
+        n_groups, _ = vlm_layout(cfg)
+        body = _remat(_vlm_group, cfg)
         aux, ks, vs, xks, xvs = 0.0, [], [], [], []
         for g in range(n_groups):
-            gp = _at(params["groups"], g)
-            gk, gv = [], []
-            for j in range(self_per):
-                h, (k, v), a = _uniform_block(h, _at(gp["self"], j), cfg)
-                aux = aux + a
-                gk.append(k)
-                gv.append(v)
-            h, (xk, xv) = _cross_group(h, gp, cfg, vision=vision)
-            ks.append(torch.stack(gk))
-            vs.append(torch.stack(gv))
-            xks.append(xk)
-            xvs.append(xv)
+            h, a, cached = body(h, _at(params["groups"], g), cfg, vision, collect_cache)
+            aux = aux + a
+            if collect_cache:
+                (k, v), (xk, xv) = cached
+                ks.append(k)
+                vs.append(v)
+                xks.append(xk)
+                xvs.append(xv)
         caches = None
         if collect_cache:
             caches = {"k": torch.stack(ks), "v": torch.stack(vs),
@@ -371,22 +450,23 @@ def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
 
     if cfg.pattern == "zamba":
         n_groups, per, tail = zamba_layout(cfg)
+        body = _remat(_zamba_group, cfg)
         sks, svs, convs, ssms = [], [], [], []
         for g in range(n_groups):
-            h, (k, v) = _shared_block(h, params["shared"], cfg)
-            sks.append(k)
-            svs.append(v)
-            gc, gs = [], []
-            for j in range(per):
-                h, st = _mamba_block(h, _at(params["mamba_groups"], g, j), cfg)
-                gc.append(st["conv"])
-                gs.append(st["ssm"])
-            convs.append(torch.stack(gc))
-            ssms.append(torch.stack(gs))
+            h, cached = body(h, params["shared"], _at(params["mamba_groups"], g), cfg,
+                             collect_cache)
+            if collect_cache:
+                (k, v), conv, ssm_st = cached
+                sks.append(k)
+                svs.append(v)
+                convs.append(conv)
+                ssms.append(ssm_st)
+        tail_block = _remat(_mamba_block, cfg)
         tail_sts = []
         for j in range(tail):
-            h, st = _mamba_block(h, _at(params["tail"], j), cfg)
-            tail_sts.append(st)
+            h, st = tail_block(h, _at(params["tail"], j), cfg)
+            if collect_cache:
+                tail_sts.append(st)
         caches = None
         if collect_cache:
             caches = {"shared_k": torch.stack(sks), "shared_v": torch.stack(svs),
@@ -397,10 +477,12 @@ def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
         return h, caches, 0.0
 
     if cfg.pattern == "rwkv":
+        block = _remat(_rwkv_block, cfg)
         sts = []
         for i in range(cfg.n_layers):
-            h, st = _rwkv_block(h, _at(params["layers"], i), cfg)
-            sts.append(st)
+            h, st = block(h, _at(params["layers"], i), cfg)
+            if collect_cache:
+                sts.append(st)
         caches = None
         if collect_cache:
             caches = {name: torch.stack([st[name] for st in sts])
@@ -410,23 +492,33 @@ def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
     raise ValueError(cfg.pattern)
 
 
+def _xent_chunk(hb, head_w, lb):
+    logits = (hb @ head_w).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, lb[..., None], dim=-1)[..., 0]
+    return (logz - ll).sum()
+
+
 def chunked_xent(h, head_w, labels, chunk: int):
-    """Sequence-chunked softmax cross-entropy (logits O(B·chunk·V) at a time)."""
+    """Sequence-chunked softmax cross-entropy (logits O(B·chunk·V) at a
+    time).  Under autograd each chunk is checkpointed, so its logits are
+    recomputed in the backward rather than kept."""
     b, s, d = h.shape
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of the loss chunk {chunk}")
+    body = _xent_chunk
+    if torch.is_grad_enabled():
+        body = functools.partial(checkpoint, _xent_chunk, use_reentrant=False)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, chunk):
-        logits = (h[:, i:i + chunk] @ head_w).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.take_along_dim(logits, labels[:, i:i + chunk, None], dim=-1)[..., 0]
-        total = total + (logz - ll).sum()
+        total = total + body(h[:, i:i + chunk], head_w, labels[:, i:i + chunk])
     return total / (b * s)
 
 
 def forward_train(params, cfg: ModelConfig, batch):
-    """The training loss's value: (xent + 0.01·aux, {"xent", "aux"})."""
+    """The training loss, (xent + 0.01·aux, {"xent", "aux"}), differentiable
+    in the parameters' tensors."""
     h = embed_inputs(params, cfg, batch)
     h, _, aux = backbone(params, cfg, h, batch, collect_cache=False)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)

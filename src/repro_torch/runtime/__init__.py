@@ -1,3 +1,3 @@
-"""Step factories of the LM stack: prefill and decode."""
+"""Step factories of the LM stack: train, prefill and decode."""
 
-from .step import make_decode_step, make_prefill_step  # noqa: F401
+from .step import make_decode_step, make_prefill_step, make_train_step  # noqa: F401

@@ -18,7 +18,12 @@ in block order), so two calls on the same inputs give the same bits.
 The LM stack's smoke configs run on the card in float32 with TF32 off and
 are held against the port on the CPU, every parameter leaf random: logits
 and caches to rtol / atol 5e-4 (summation order only), greedy tokens
-exactly."""
+exactly.  Training: ``flash_attention``'s gradients on the card against
+the CPU to rtol / atol 5e-4; one smoke train step's loss to rtol 1e-5 and
+every gradient leaf to rtol 1e-3 plus 5e-4 of the leaf's largest element
+(the card's embedding and MoE backward add with atomics, in any order);
+AdamW on identical gradients to rtol 1e-5 / atol 1e-7, its bfloat16 first
+moment to one bf16 ulp."""
 
 import numpy as np
 import pytest
@@ -37,7 +42,12 @@ from repro_torch.kernels.semiring_contract.ref import semiring_contract_ref
 from repro_torch.kernels.tropical_contract import ops as tc_ops
 from repro_torch.kernels.tropical_contract.ref import tropical_contract_ref
 from repro_torch.launch.serve import pad_caches
+from repro_torch.checkpoint.checkpointer import restore_pytree, save_pytree
+from repro_torch import tree as lm_tree
 from repro_torch.models import convert
+from repro_torch.models import layers as lm_layers
+from repro_torch.optim import adamw
+from repro_torch.runtime import step as lm_step
 from repro_torch.runtime.step import make_decode_step, make_prefill_step
 from repro_torch.relational import schema
 from repro_torch.relational.relation import mask_in
@@ -743,3 +753,78 @@ def test_cuda_lm_smoke_config_matches_cpu(cuda, no_tf32, arch):
     for i, ((lc, _), (lg, _)) in enumerate(zip(cpu, card)):
         torch.testing.assert_close(lg.cpu(), lc, **LM_TOL, msg=f"step {i}")
         assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), f"greedy token, step {i}"
+
+
+# (b, sq, sk, h, kh, dh, causal, chunk, q_off, k_off, mode)
+FLASH_CASES = [(2, 256, 256, 8, 2, 32, True, 64, 0, 0, "full_masked"),
+               (1, 128, 256, 4, 4, 16, True, 32, 128, 0, "full_masked"),
+               (2, 96, 160, 4, 2, 16, False, 32, 0, 0, "full_masked"),
+               (1, 256, 256, 4, 2, 16, True, 32, 0, 0, "divide")]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_backward_matches_cpu(cuda, no_tf32, case):
+    """``flash_attention``'s gradients (through o and lse) on the card
+    against the CPU; ``divide`` reaches lse through ``_merge_attn``."""
+    b, sq, sk, h, kh, dh, causal, c, q_off, k_off, mode = case
+    rng = np.random.default_rng(sq + sk)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((b, sq, h, dh), (b, sk, kh, dh), (b, sk, kh, dh), (b, sq, h))]
+    grads = {}
+    for dev in ("cpu", cuda):
+        q, k, v, w = (torch.tensor(a, device=dev, requires_grad=i < 3) for i, a in enumerate(arrays))
+        if mode == "divide":
+            o = lm_layers.causal_attention(q, k, v, mode="divide", q_chunk=c, kv_chunk=c,
+                                           min_block=2 * c)
+            loss = o.sin().sum()
+        else:
+            o, lse = lm_layers.flash_attention(q, k, v, causal, c, c, q_off, k_off)
+            loss = o.sin().sum() + (lse * w * 0.1).cos().sum()
+        grads[str(dev)] = torch.autograd.grad(loss, (q, k, v))
+    for name, gc, gg in zip("qkv", grads["cpu"], grads[str(cuda)]):
+        torch.testing.assert_close(gg.cpu(), gc, **LM_TOL, msg=f"d{name}")
+
+
+# float32 leaves; the step exactly; the bfloat16 first moment to one bf16 ulp
+# (2^-7 of the value at most): float32 values one ulp apart can round to
+# either bf16 neighbour
+ADAMW_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-7),
+             torch.bfloat16: dict(rtol=2.0 ** -7, atol=0.0), torch.int32: dict(rtol=0, atol=0)}
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_cuda_lm_smoke_train_step_matches_cpu(cuda, no_tf32, arch):
+    """One smoke train step: the loss and every gradient leaf on the card
+    against the CPU, then AdamW on the CPU's gradients on both devices."""
+    cfg = smoke_config(get_config(arch))
+    tree = random_tree(cfg, 1)
+    batch = make_batch(cfg, 2, 32, seed=2, labels=True)
+    runs = {}
+    for dev in ("cpu", cuda):
+        runs[str(dev)] = lm_step.loss_and_grads(cfg, convert.params_from_reference(cfg, tree, dev),
+                                                batch)
+    (lc, _, paths, gcpu), (lg, _, _, ggpu) = runs["cpu"], runs[str(cuda)]
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=0)
+    for path, a, b in zip(paths, gcpu, ggpu):
+        scale = float(a.abs().max())
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-3, atol=5e-4 * scale, msg=str(path))
+    opt_cfg = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=1)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = convert.params_from_reference(cfg, tree, dev)
+        grads = lm_tree.from_paths(paths, [g.to(dev) for g in gcpu])
+        out[str(dev)] = adamw.apply_updates(params, grads, adamw.init_opt_state(params, opt_cfg),
+                                            opt_cfg)
+    for part in (0, 1):
+        flat_c = dict(lm_tree.paths(out["cpu"][part]))
+        for path, t in lm_tree.paths(out[str(cuda)][part]):
+            torch.testing.assert_close(t.cpu(), flat_c[path], **ADAMW_TOL[t.dtype], msg=str(path))
+
+
+def test_cuda_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    tree = {"w": torch.arange(12, dtype=torch.float32).reshape(3, 4).to(cuda),
+            "m": torch.linspace(-2, 2, 7).bfloat16().to(cuda)}
+    save_pytree(tree, tmp_path, 1)
+    got, step = restore_pytree(tmp_path, template=tree, device={"w": cuda, "m": "cpu"})
+    assert step == 1 and got["w"].device.type == cuda.type and got["m"].device.type == "cpu"
+    assert torch.equal(got["w"], tree["w"]) and torch.equal(got["m"], tree["m"].cpu())

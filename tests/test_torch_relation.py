@@ -194,6 +194,10 @@ def test_relational_imports_before_core_and_without_jax():
         "import repro_torch.models.convert\n"
         "import repro_torch.runtime.step\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.train\n"
+        "import repro_torch.optim, repro_torch.optim.compression\n"
+        "import repro_torch.data.pipeline\n"
+        "import repro_torch.checkpoint.checkpointer\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print('BAD', bad)\n"
