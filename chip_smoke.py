@@ -185,7 +185,23 @@ CUDA toolkit.  Phases:
     with a failure injected at step 6 and the telemetry dashboard (every
     segment-kernel launch held against its plain version, counted from 0 as
     ``launches_train``), restored from step 4, then the run without the
-    failure: its losses from step 4 on within rtol 1e-4.
+    failure: its losses from step 4 on within rtol 1e-4;
+20. sharding rules and the dry-run's host side (``repro_torch.runtime.sharding``
+    / ``compat`` / ``launch.dryrun``, no kernel; launch counts reset before
+    the phase and read after it, all 0, as ``launches_sharding``): (a) the
+    steps under ``make_rules(make_host_mesh())`` against ``rules=None``, bit
+    for bit: stablelm-12b at full width, 2 layers, float32, a 1 x 16 prefill
+    and 4 greedy decode steps, and a granite-moe-1b-a400m smoke train step
+    (loss, gradients, new parameters and moments, metrics; deterministic
+    algorithms); (b) granite-moe-1b-a400m at full size, batch 4 x 2048, bf16
+    parameters, AdamW (bf16 m, float32 v): the dry-run's FLOP count on meta
+    tensors must equal ``compat.compiled_flops`` of one real train step on
+    the card exactly, its 1/2-unit extrapolation is printed beside it, and
+    its argument bytes must equal the state and batch materialized on the
+    card: the allocator's requested bytes grow by exactly them, and
+    ``memory_allocated`` by them plus its rounding (512 B granules; a
+    large-pool block keeps up to 1 MiB unsplit).
+    ``python -m repro_torch.launch.dryrun --all`` runs outside this script.
 
 Two times go with every kernel: ``ms``, wrapper calls back to back between
 CUDA events (what the main path pays, host cost included), and
@@ -3705,6 +3721,184 @@ def train_phase(torch, np, K, L, LM, report: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 20: sharding rules and the dry-run's host side
+# ---------------------------------------------------------------------------
+
+SHARD_WIDE = (1, 16, 4)            # batch, prompt, decode steps of stablelm-12b at full width
+DRYRUN_CELL = (4, 2048)            # batch, sequence of the counted train step (phase 19's)
+# the caching allocator's rounding of one tensor's block: 512 B granules, and a
+# large-pool block keeps a remainder of up to 1 MiB unsplit
+ALLOC_ROUND = (1 << 20) + 512
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms (warn only): the embedding's backward adds in
+    one order, so two train steps can be held bit for bit."""
+    old = torch.are_deterministic_algorithms_enabled(), \
+        torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+
+
+def rules_serve_run(torch, LM, cfg, params, batch, rules, gen: int) -> list:
+    """Prefill logits and caches, then ``gen`` greedy decode steps' logits."""
+    s = next(iter(batch.values())).shape[1]
+    logits, caches = LM.step.make_prefill_step(cfg, rules)(params, batch)
+    out = [logits, *(v.clone() for v in caches.values())]
+    caches = LM.serve.pad_caches(caches, s + gen)
+    decode = LM.step.make_decode_step(cfg, rules)
+    for i in range(gen):
+        tok = {"tokens": logits.argmax(-1)[:, None].to(torch.int32)}
+        logits, caches = decode(params, tok, caches, s + i)
+        out.append(logits)
+    return out
+
+
+def rules_train_run(torch, LM, cfg, params, batch, rules) -> list:
+    """The loss and gradients, then one train step's new parameters, moments
+    and metrics (AdamW from a fresh state)."""
+    acts = LM.step.acts_for(cfg, rules, layer_params=True)
+    loss, _, _, grads = LM.step.loss_and_grads(cfg, params, batch, acts)
+    opt_cfg = LM.adamw.AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=1)
+    new, opt, metrics = LM.step.make_train_step(cfg, opt_cfg, rules, donate=False)(
+        params, LM.adamw.init_opt_state(params, opt_cfg), batch)
+    return [loss, *grads, *_lm_leaves(new), *_lm_leaves(opt), *metrics.values()]
+
+
+def rules_identity(torch, np, LM, card: str) -> dict:
+    """(a) The steps under ``make_rules(make_host_mesh())`` against
+    ``rules=None``, bit for bit: stablelm-12b at full width (2 layers,
+    float32) prefill and decode, a granite-moe-1b-a400m smoke train step."""
+    rules = LM.sharding.make_rules(LM.mesh.make_host_mesh())
+    wide = dataclasses.replace(LM.get_config("stablelm-12b"), n_layers=LM_WIDE_LAYERS)
+    params = LM.lm.init_params(wide, 0, device="cuda")
+    b, s, gen = SHARD_WIDE
+    batch = lm_batch(torch, np, wide, b, s, 2, "cuda")
+    serve = [rules_serve_run(torch, LM, wide, params, batch, r, gen) for r in (None, rules)]
+    del params
+    same = [bool(torch.equal(x, y)) for x, y in zip(*serve)]
+    check(all(same), f"stablelm-12b wide: {same.count(False)} of {len(same)} prefill / decode "
+          f"outputs differ under the rules")
+    cfg = LM.smoke_config(LM.get_config(TRAIN_ARCH))
+    tree = lm_random_tree(np, LM, cfg, 1)
+    rng = np.random.default_rng(4)
+    tb = {k: torch.as_tensor(rng.integers(0, cfg.vocab, TRAIN_SMOKE), dtype=torch.int32,
+                             device="cuda") for k in ("tokens", "labels")}
+    with deterministic(torch):
+        train = [rules_train_run(torch, LM, cfg,
+                                 LM.convert.params_from_reference(cfg, tree, "cuda"), tb, r)
+                 for r in (None, rules)]
+    tsame = [bool(torch.equal(x, y)) for x, y in zip(*train)]
+    check(all(tsame), f"{TRAIN_ARCH} smoke train step: {tsame.count(False)} of {len(tsame)} "
+          f"loss / gradient / parameter / moment / metric tensors differ under the rules")
+    print(f"  rules=make_rules(make_host_mesh()) against rules=None ({card}): stablelm-12b at full "
+          f"width, {LM_WIDE_LAYERS} layers, float32, prefill {b}x{s} and {gen} decode steps: "
+          f"{len(same)} tensors bit-equal; {TRAIN_ARCH} smoke train step: {len(tsame)} tensors "
+          f"(loss, gradients, new parameters and moments, metrics) bit-equal", flush=True)
+    return {"serve_tensors": len(same), "train_tensors": len(tsame), "bit_equal": True}
+
+
+def dryrun_cell(torch, np, LM, card: str) -> dict:
+    """(b) The dry-run's numbers for granite-moe-1b-a400m at full size, batch
+    4 x 2048, on ``make_host_mesh()``, against the card: its direct FLOP
+    count on meta tensors equals ``compat.compiled_flops`` of one real train
+    step; its argument bytes equal the state and batch materialized here:
+    the allocator's requested bytes grow by exactly them, ``memory_allocated``
+    by them plus its block rounding."""
+    cfg = LM.get_config(TRAIN_ARCH)
+    b, s = DRYRUN_CELL
+    shape = LM.ShapeConfig("phase20_train", "train", s, b)
+    mesh = LM.mesh.make_host_mesh()
+    rules = LM.sharding.make_rules(mesh, shape)
+    t0 = time.perf_counter()
+    costs, _ = LM.dryrun.lower_cell(LM.dryrun.chunk_free(cfg, shape), shape, mesh, rules, 1)
+    meta_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    analysis = LM.dryrun.run_analysis(cfg, shape, mesh, rules)
+    analysis_s = time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    params = LM.lm.init_params(cfg, 0, dtype=torch.bfloat16, device="cuda")
+    opt_cfg = LM.adamw.AdamWConfig()
+    opt = LM.adamw.init_opt_state(params, opt_cfg)
+    rng = np.random.default_rng(5)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)), dtype=torch.int32,
+                                device="cuda") for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"] - requested
+    leaves = [*_lm_leaves(params), *_lm_leaves(opt), *batch.values()]
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(nbytes == costs["argument_bytes"], f"dry-run argument bytes {costs['argument_bytes']:,} "
+          f"against {nbytes:,} materialized")
+    check(requested == nbytes, f"the allocator's requested bytes grew by {requested:,} B for "
+          f"{nbytes:,} B")
+    check(0 <= grown - nbytes < ALLOC_ROUND * len(leaves),
+          f"memory_allocated grew by {grown:,} B for {nbytes:,} B in {len(leaves)} leaves")
+
+    step_fn = LM.step.make_train_step(cfg, opt_cfg, rules, donate=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    real = LM.compat.compiled_flops(step_fn, params, opt, batch)
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    del params, opt, batch
+    check(real == costs["flops"], f"dry-run count {costs['flops']:.6e} FLOP, the real step on "
+          f"the card {real:.6e}")
+    extr = analysis["extrapolated"]["flops"]
+    rec = {"arch": TRAIN_ARCH, "batch": b, "seq": s, "param_dtype": "bfloat16",
+           "direct_flops": costs["flops"], "card_flops": real, "extrapolated_flops": extr,
+           "direct_minus_extrapolated": costs["flops"] - extr, "units": analysis["units"],
+           "argument_bytes": costs["argument_bytes"], "output_bytes": costs["output_bytes"],
+           "materialized_bytes": nbytes, "requested_growth": requested,
+           "allocated_growth": grown, "leaves": len(leaves),
+           "meta_trace_s": meta_s, "analysis_s": analysis_s, "card_counted_step_s": real_s}
+    print(f"  {TRAIN_ARCH} train {b}x{s}, bf16 parameters, AdamW (bf16 m, float32 v) on "
+          f"make_host_mesh() ({card}): dry-run {costs['flops']:.6e} FLOP on meta in {meta_s:.1f} s "
+          f"= the real step on the card {real:.6e} (counted in {real_s:.1f} s); 1/2-unit "
+          f"extrapolation over {analysis['units']} units {extr:.6e} (direct - extrapolated "
+          f"{rec['direct_minus_extrapolated']:.6e}; {analysis_s:.1f} s)", flush=True)
+    print(f"  argument bytes {costs['argument_bytes']:,} = {nbytes:,} materialized in "
+          f"{len(leaves)} leaves = the allocator's requested growth {requested:,}; "
+          f"memory_allocated grew {grown:,} B (+{grown - nbytes:,} of block rounding); output "
+          f"bytes {costs['output_bytes']:,} ({card})", flush=True)
+    return rec
+
+
+def sharding_phase(torch, np, K, LM, card: str, report: dict) -> dict:
+    """Phase 20: (a) rules= changes nothing on the card, (b) one dry-run cell
+    against the card.  The phase launches no kernel: the counts are reset
+    before it, read after it and must be 0."""
+    started = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches(K)
+    rec: dict = {"card": card}
+    try:
+        rec["rules"] = rules_identity(torch, np, LM, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["dryrun"] = dryrun_cell(torch, np, LM, card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    rec["launches"] = read_launches(K)
+    check(not any(rec["launches"].values()), f"phase 20 launched kernels: {rec['launches']}")
+    rec["wall_s"] = time.perf_counter() - started
+    print(f"  phase 20: {rec['wall_s']:.1f} s, kernel launches {rec['launches']} ({card})",
+          flush=True)
+    report["sharding"] = rec
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -3749,13 +3943,17 @@ def main() -> int:
     from repro_torch.serve import ServeStats, TreantServer
     from repro_torch import configs as lm_configs
     from repro_torch import tree as lm_tree
-    from repro_torch.configs.base import smoke_config
+    from repro_torch.configs.base import ShapeConfig, smoke_config
+    from repro_torch.launch import dryrun as lm_dryrun
+    from repro_torch.launch import mesh as lm_mesh
     from repro_torch.launch import serve as lm_serve
     from repro_torch.launch import train as lm_train
     from repro_torch.models import convert as lm_convert
     from repro_torch.models import layers as lm_layers
     from repro_torch.models import lm
     from repro_torch.optim import adamw as lm_adamw
+    from repro_torch.runtime import compat as lm_compat
+    from repro_torch.runtime import sharding as lm_sharding
     from repro_torch.runtime import step as lm_step
 
     K = types.SimpleNamespace(
@@ -3778,7 +3976,8 @@ def main() -> int:
     LM = types.SimpleNamespace(ALL_ARCHS=lm_configs.ALL_ARCHS, get_config=lm_configs.get_config,
                                smoke_config=smoke_config, lm=lm, convert=lm_convert,
                                step=lm_step, serve=lm_serve, layers=lm_layers, adamw=lm_adamw,
-                               train=lm_train, tree=lm_tree)
+                               train=lm_train, tree=lm_tree, sharding=lm_sharding, mesh=lm_mesh,
+                               dryrun=lm_dryrun, compat=lm_compat, ShapeConfig=ShapeConfig)
     report: dict = {}
     started = time.perf_counter()
     try:
@@ -3843,6 +4042,12 @@ def main() -> int:
         trained = train_phase(torch, np, K, L, LM, report)
         for r in records:
             r["launches_train"] = trained["launches"][r["name"]]
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("sharding rules and the dry-run's host side (phase 20):", flush=True)
+        sharded_lm = sharding_phase(torch, np, K, LM, card, report)
+        for r in records:
+            r["launches_sharding"] = sharded_lm["launches"][r["name"]]
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

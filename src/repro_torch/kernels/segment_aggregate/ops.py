@@ -120,3 +120,13 @@ def level_aggregate(items, op: str = "sum") -> list[torch.Tensor]:
         seg_off += g
     out = level_segment_aggregate(torch.cat(all_codes), torch.cat(all_vals), seg_off, op)
     return [out[off: off + g, : v.shape[1]] for (off, g), (_, v, _) in zip(spans, items)]
+
+
+def aggregate(codes: torch.Tensor, values: torch.Tensor, num_segments: int, op: str = "sum",
+              use_kernel: bool = True) -> torch.Tensor:
+    """``aggregate_op`` (the kernel on a CUDA tensor), or with
+    ``use_kernel=False`` the plain version (``ref.py``) on any device: the
+    caller's choice, never a fallback."""
+    if use_kernel:
+        return aggregate_op(codes, values, num_segments, op=op)
+    return segment_aggregate_ref(codes, values, num_segments, op)

@@ -47,3 +47,10 @@ def contract_op(m: torch.Tensor, r: torch.Tensor,
     kernel.launch(m, r, mask, out, scratch, geom)
     LAUNCHES["semiring_contract"] += 1
     return out
+
+
+def contract(m: torch.Tensor, r: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The reference's ``contract``: ``contract_op`` (its kernel on a CUDA
+    tensor, the plain version on the CPU).  The reference's ``use_pallas``
+    switch has no counterpart: on the card the kernel always runs."""
+    return contract_op(m, r, mask)

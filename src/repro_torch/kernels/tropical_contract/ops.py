@@ -42,3 +42,13 @@ def contract_op(m: torch.Tensor, r: torch.Tensor, is_min: bool = True) -> torch.
     kernel.launch(m, r, out, scratch, geom, is_min)
     LAUNCHES["tropical_contract"] += 1
     return out
+
+
+def contract(m: torch.Tensor, r: torch.Tensor, is_min: bool = True,
+             use_kernel: bool = True) -> torch.Tensor:
+    """``contract_op`` (the kernel on a CUDA tensor), or with
+    ``use_kernel=False`` the plain version (``ref.py``) on any device: the
+    caller's choice, never a fallback."""
+    if use_kernel:
+        return contract_op(m, r, is_min=is_min)
+    return tropical_contract_ref(m, r, is_min)

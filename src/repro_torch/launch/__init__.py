@@ -1,1 +1,2 @@
-"""Launchers of the LM stack: the serve entry point."""
+"""Launchers of the LM stack: serve, train, the production meshes and the
+dry-run's host side."""

@@ -3,8 +3,10 @@ softmax for train and prefill, cache attention for decode), MLP variants, MoE.
 
 All functions are pure; parameters are dicts of tensors laid out as
 ``lm.param_specs`` describes them (a projection ``W`` is (d_in, d_out) and
-is applied as ``x @ W``).  The reference's sharding constraints have no
-counterpart on one device and are dropped.
+is applied as ``x @ W``).  The reference's activation sharding constraints
+are kept as ``with_sharding`` sites, fed by the ``acts`` dict that
+``runtime.sharding.act_specs`` builds; on one device they return their
+input.
 
 Attention compute modes:
   - ``full_masked``  — chunked online-softmax attention over all kv chunks
@@ -27,6 +29,16 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
+
+
+def with_sharding(x, sharding):
+    """``x`` itself: on one device a placement moves nothing.  ``sharding``
+    (a ``runtime.sharding.NamedSharding``, or ``None``) may not name more
+    dims than ``x`` has."""
+    if sharding is not None and len(sharding.spec) > x.dim():
+        raise ValueError(f"placement {sharding.spec} has more entries than a "
+                         f"{x.dim()}-d tensor has dims")
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +279,7 @@ def decode_attention(q, cache_k, cache_v, valid_upto=None):
 # Attention block (projections + modes)
 # ---------------------------------------------------------------------------
 
-def attention_block(x, p, cfg, *, cache=None, pos_offset=0):
+def attention_block(x, p, cfg, *, cache=None, pos_offset=0, acts=None):
     """Self-attention with GQA + RoPE.
 
     prefill: cache is None → returns (y, (k, v)) so callers can build a
@@ -275,12 +287,16 @@ def attention_block(x, p, cfg, *, cache=None, pos_offset=0):
     """
     b, s, d = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    acts = acts or {}
     q = (x @ p["wq"]).reshape(b, s, h, dh)
     k = (x @ p["wk"]).reshape(b, s, kh, dh)
     v = (x @ p["wv"]).reshape(b, s, kh, dh)
     pos = pos_offset + torch.arange(s, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    q = with_sharding(q, acts.get("qkv"))
+    k = with_sharding(k, acts.get("kv"))
+    v = with_sharding(v, acts.get("kv"))
     if cache is not None:
         ck, cv = cache
         o = decode_attention(q[:, 0], ck, cv)[:, None]
@@ -289,11 +305,12 @@ def attention_block(x, p, cfg, *, cache=None, pos_offset=0):
             q, k, v, mode=cfg.attn_mode, q_chunk=cfg.attn_q_chunk,
             kv_chunk=cfg.attn_kv_chunk, min_block=cfg.attn_min_block,
         )
+    o = with_sharding(o, acts.get("qkv"))
     y = o.reshape(b, s, h * dh) @ p["wo"]
     return y, (k, v)
 
 
-def cross_attention_block(x, p, cfg, kv=None, vision=None):
+def cross_attention_block(x, p, cfg, kv=None, vision=None, acts=None):
     """Cross-attention against vision tokens (llama-3.2-vision style).
 
     ``kv`` (cached projected vision K/V) or ``vision`` (embeddings) must be
@@ -308,6 +325,7 @@ def cross_attention_block(x, p, cfg, kv=None, vision=None):
         v = (vision @ p["wv"]).reshape(b, t, kh, dh)
     else:
         k, v = kv
+    q = with_sharding(q, (acts or {}).get("qkv"))
     if s == 1:
         o = decode_attention(q[:, 0], k, v)[:, None]
     else:
@@ -330,8 +348,9 @@ def _activation(cfg, a, b=None):
     raise ValueError(cfg.mlp)
 
 
-def mlp_block(x, p, cfg):
+def mlp_block(x, p, cfg, acts=None):
     hdn = _activation(cfg, x @ p["w1"], x @ p["w3"] if cfg.mlp == "swiglu" else None)
+    hdn = with_sharding(hdn, (acts or {}).get("ff"))
     return hdn @ p["w2"]
 
 
@@ -359,7 +378,7 @@ def _capacity_slots(onehot, cap: int):
     return torch.where(in_cap, pos, 0.0).long(), in_cap
 
 
-def _moe_groups(xt, p, cfg, g: int, cap: int):
+def _moe_groups(xt, p, cfg, acts, g: int, cap: int):
     """Dispatch + expert compute + combine for a slab of token groups.
 
     xt: (ng, g, d).  Returns (y (ng, g, d), aux scalar).  The reference's
@@ -381,17 +400,22 @@ def _moe_groups(xt, p, cfg, g: int, cap: int):
     dispatch = slot_oh.sum(dim=2)                                  # (ng, g, e·cap)
     combine = (topv.to(xt.dtype)[:, :, None, :] @ slot_oh)[:, :, 0]  # (ng, g, e·cap)
 
-    xin = dispatch.transpose(1, 2) @ xt                            # (ng, e·cap, d)
-    xe = xin.reshape(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
+    xin = (dispatch.transpose(1, 2) @ xt).reshape(ng, e, cap, d)   # (ng, e, cap, d)
+    xin = with_sharding(xin, acts.get("expert_in"))
+    xe = xin.transpose(0, 1).reshape(e, ng * cap, d)
     a = xe @ p["w1"]                                               # (e, ng·cap, f)
     b = xe @ p["w3"] if cfg.mlp == "swiglu" else None
     hdn = F.silu(a) * b if cfg.mlp == "swiglu" else F.relu(a).square()
+    # the placement names the reference's (ng, e, cap, f) layout: a view
+    f = hdn.shape[-1]
+    hdn = with_sharding(hdn.view(e, ng, cap, f).transpose(0, 1), acts.get("expert_ff"))
+    hdn = hdn.transpose(0, 1).reshape(e, ng * cap, f)
     out = (hdn @ p["w2"]).reshape(e, ng, cap, d).transpose(0, 1).reshape(ng, e * cap, d)
     y = combine @ out                                              # (ng, g, d)
     return y, _load_balance_loss(gates, onehot)
 
 
-def moe_block(x, p, cfg):
+def moe_block(x, p, cfg, acts=None):
     """Top-k MoE with capacity-bounded one-hot dispatch.
 
     Tokens are processed in groups of ``cfg.moe.group``, the groups in up to
@@ -409,17 +433,18 @@ def moe_block(x, p, cfg):
     ng = n // g
     cap = min(int(math.ceil(g * k * moe.capacity_factor / e)), g)
     xt = x.reshape(ng, g, d)
+    acts = acts or {}
 
     steps = min(16, ng)
     while ng % steps:
         steps -= 1
     if steps <= 1:
-        y, aux = _moe_groups(xt, p, cfg, g, cap)
+        y, aux = _moe_groups(xt, p, cfg, acts, g, cap)
         return y.reshape(b, s, d).to(x.dtype), aux
     body = _moe_groups
     if torch.is_grad_enabled():
         body = functools.partial(checkpoint, _moe_groups, use_reentrant=False)
-    ys, auxs = zip(*(body(slab, p, cfg, g, cap)
+    ys, auxs = zip(*(body(slab, p, cfg, acts, g, cap)
                      for slab in xt.reshape(steps, ng // steps, g, d)))
     y = torch.cat(ys, dim=0)
     return y.reshape(b, s, d).to(x.dtype), torch.stack(auxs).mean()

@@ -5,7 +5,11 @@ Parameters are plain nested dicts of tensors with the reference's layout:
 every stacked leaf keeps its leading layer (and group) axes, and the
 forwards walk the layers with Python loops over views of those stacks.
 ``param_specs`` describes every leaf once as (shape, logical axes, init);
-the axes are kept for parity with the reference and unused on one device.
+``runtime.sharding`` maps the axes onto a mesh, and ``abstract_params``
+builds the ``meta``-tensor skeleton the dry-run traces.  The forwards take
+the reference's ``acts`` (``runtime.sharding.act_specs``): placements of
+activations and per-layer parameters, checked and passed through
+(``layers.with_sharding``); on one device they change nothing.
 
 Under autograd, ``cfg.remat`` ("full", "dots", "none") and
 ``cfg.scan_groups`` checkpoint the blocks where the reference rematerializes
@@ -247,6 +251,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
     return map_specs(param_specs(cfg), build)
 
 
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16, sharding_fn=None) -> dict:
+    """The parameter skeleton as ``meta`` tensors (no allocation), built from
+    ``param_specs``.  With ``sharding_fn`` (Spec → ``NamedSharding``) every
+    leaf is a ``runtime.sharding.AbstractTensor`` carrying its sharding."""
+    from repro_torch.runtime.sharding import AbstractTensor
+
+    def build(path: str, spec: Spec):
+        t = torch.empty(spec.shape, dtype=spec.dtype or dtype, device="meta")
+        return AbstractTensor(t, sharding_fn(spec)) if sharding_fn else t
+
+    return map_specs(param_specs(cfg), build)
+
+
 def map_specs(tree, fn, path=""):
     """``fn(path, spec)`` at every leaf of a spec tree (paths like
     ``/layers/attn/wq``)."""
@@ -274,60 +291,73 @@ def compute_dtype(params):
     return next(T.leaves(params)).dtype
 
 
-def embed_inputs(params, cfg: ModelConfig, batch):
+def embed_inputs(params, cfg: ModelConfig, batch, acts=None):
     dev = params["head"].device
     if cfg.input_mode == "embeddings":
         h = _as_input(batch["embeds"], dev)
     else:
         h = params["embed"][_as_input(batch["tokens"], dev).long()]
-    return h.to(compute_dtype(params))
+    return L.with_sharding(h.to(compute_dtype(params)), (acts or {}).get("resid"))
 
 
-def _uniform_block(h, lp, cfg, cache=None, pos=0):
+def _uniform_block(h, lp, cfg, acts, cache=None, pos=0):
     a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-    a, kv = L.attention_block(a_in, lp["attn"], cfg, cache=cache, pos_offset=pos)
+    a, kv = L.attention_block(a_in, lp["attn"], cfg, cache=cache, pos_offset=pos, acts=acts)
     h = h + a
     m_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
-        m, aux = L.moe_block(m_in, lp["moe"], cfg)
+        m, aux = L.moe_block(m_in, lp["moe"], cfg, acts=acts)
     else:
-        m, aux = L.mlp_block(m_in, lp["mlp"], cfg), 0.0
-    return h + m, kv, aux
+        m, aux = L.mlp_block(m_in, lp["mlp"], cfg, acts=acts), 0.0
+    return L.with_sharding(h + m, acts.get("resid")), kv, aux
 
 
-def _shared_block(h, sp, cfg, cache=None, pos=0):
+def _shared_block(h, sp, cfg, acts, cache=None, pos=0):
     a, kv = L.attention_block(
-        L.rms_norm(h, sp["ln1"], cfg.norm_eps), sp["attn"], cfg, cache=cache, pos_offset=pos)
+        L.rms_norm(h, sp["ln1"], cfg.norm_eps), sp["attn"], cfg, cache=cache, pos_offset=pos,
+        acts=acts)
     h = h + a
-    h = h + L.mlp_block(L.rms_norm(h, sp["ln2"], cfg.norm_eps), sp["mlp"], cfg)
-    return h, kv
+    h = h + L.mlp_block(L.rms_norm(h, sp["ln2"], cfg.norm_eps), sp["mlp"], cfg, acts=acts)
+    return L.with_sharding(h, acts.get("resid")), kv
 
 
-def _rwkv_block(h, lp, cfg, state=None):
+def _rwkv_block(h, lp, cfg, acts, state=None):
     tm_state = None if state is None else {"shift": state["tm_shift"], "wkv": state["wkv"]}
     y, new_tm = S.rwkv_time_mix(L.rms_norm(h, lp["ln1"], cfg.norm_eps), lp["tm"], cfg,
-                                state=tm_state)
+                                state=tm_state, acts=acts)
     h = h + y
     y2, new_cm = S.rwkv_channel_mix(
         L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp["cm"],
         state=None if state is None else state["cm_shift"],
     )
-    return h + y2, {"tm_shift": new_tm["shift"], "wkv": new_tm["wkv"], "cm_shift": new_cm}
+    h = L.with_sharding(h + y2, acts.get("resid"))
+    return h, {"tm_shift": new_tm["shift"], "wkv": new_tm["wkv"], "cm_shift": new_cm}
 
 
-def _mamba_block(h, mp, cfg, state=None):
-    y, new_state = S.mamba2_mix(L.rms_norm(h, mp["ln"], cfg.norm_eps), mp, cfg, state=state)
-    return h + y, new_state
+def _mamba_block(h, mp, cfg, acts, state=None):
+    y, new_state = S.mamba2_mix(L.rms_norm(h, mp["ln"], cfg.norm_eps), mp, cfg, state=state,
+                                acts=acts)
+    return L.with_sharding(h + y, acts.get("resid")), new_state
 
 
-def _cross_group(h, gp, cfg, vision=None, kv=None):
+def _cross_group(h, gp, cfg, acts, vision=None, kv=None):
     """A vlm group's tail: gated cross-attention, then its MLP."""
     cp = gp["cross"]
     x, xkv = L.cross_attention_block(
-        L.rms_norm(h, cp["ln"], cfg.norm_eps), cp, cfg, kv=kv, vision=vision)
+        L.rms_norm(h, cp["ln"], cfg.norm_eps), cp, cfg, kv=kv, vision=vision, acts=acts)
     h = h + torch.tanh(cp["gate"]) * x
-    h = h + L.mlp_block(L.rms_norm(h, gp["cross_ln2"], cfg.norm_eps), gp["cross_mlp"], cfg)
+    h = h + L.mlp_block(L.rms_norm(h, gp["cross_ln2"], cfg.norm_eps), gp["cross_mlp"], cfg,
+                        acts=acts)
     return h, xkv
+
+
+def _layer_slice(layers, i, acts):
+    """Layer ``i``'s parameters, each under its per-slice placement
+    (``acts["layer_params"]``) when one is given."""
+    lp = _at(layers, i)
+    if acts.get("layer_params") is not None:
+        lp = T.map_leaves(L.with_sharding, lp, acts["layer_params"])
+    return lp
 
 
 # -- rematerialization ----------------------------------------------------------
@@ -359,31 +389,32 @@ def _remat(fn, cfg: ModelConfig):
 
 # -- mode: train / prefill ----------------------------------------------------
 
-def _vlm_group(h, gp, cfg, vision, collect_cache):
+def _vlm_group(h, gp, cfg, vision, collect_cache, acts):
     """One vlm group: its self layers, then the gated cross-attention and
     MLP.  Returns (h, aux, caches): caches are ((k, v) stacked over the self
     layers, (xk, xv)) when collected, else ``None``."""
     aux, ks, vs = 0.0, [], []
     for j in range(gp["self"]["ln1"].shape[0]):
-        h, (k, v), a = _uniform_block(h, _at(gp["self"], j), cfg)
+        h, (k, v), a = _uniform_block(h, _at(gp["self"], j), cfg, acts)
         aux = aux + a
         if collect_cache:
             ks.append(k)
             vs.append(v)
-    h, xkv = _cross_group(h, gp, cfg, vision=vision)
+    h, xkv = _cross_group(h, gp, cfg, acts, vision=vision)
+    h = L.with_sharding(h, acts.get("resid"))
     if not collect_cache:
         return h, aux, None
     return h, aux, ((torch.stack(ks), torch.stack(vs)), xkv)
 
 
-def _zamba_group(h, sp, gp, cfg, collect_cache):
+def _zamba_group(h, sp, gp, cfg, collect_cache, acts):
     """The shared attention block, then one group's Mamba2 layers.  Returns
     (h, caches): caches are ((k, v), conv states, ssm states) stacked over
     the group's layers when collected, else ``None``."""
-    h, kv = _shared_block(h, sp, cfg)
+    h, kv = _shared_block(h, sp, cfg, acts)
     convs, ssms = [], []
     for j in range(gp["ln"].shape[0]):
-        h, st = _mamba_block(h, _at(gp, j), cfg)
+        h, st = _mamba_block(h, _at(gp, j), cfg, acts)
         if collect_cache:
             convs.append(st["conv"])
             ssms.append(st["ssm"])
@@ -392,11 +423,12 @@ def _zamba_group(h, sp, gp, cfg, collect_cache):
     return h, (kv, torch.stack(convs), torch.stack(ssms))
 
 
-def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
+def backbone(params, cfg: ModelConfig, h, batch, acts=None, collect_cache=False):
     """Run all blocks. Returns (h, caches-or-None, aux_loss).  Under autograd
     the blocks are checkpointed where the reference applies ``_remat``: per
     layer (uniform, rwkv, zamba's tail), per group (vlm, zamba), and per
     group of ``cfg.scan_groups`` layers around the per-layer checkpoints."""
+    acts = acts or {}
     if cfg.pattern == "uniform":
         block = _remat(_uniform_block, cfg)
         layers = params["layers"]
@@ -410,7 +442,7 @@ def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
 
             def group(hh, aux, gi):
                 for i in range(gi * per, (gi + 1) * per):
-                    hh, _, a = block(hh, _at(layers, i), cfg)
+                    hh, _, a = block(hh, _layer_slice(layers, i, acts), cfg, acts)
                     aux = aux + a
                 return hh, aux
 
@@ -420,7 +452,7 @@ def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
             return h, None, aux
         aux, ks, vs = 0.0, [], []
         for i in range(cfg.n_layers):
-            h, (k, v), a = block(h, _at(layers, i), cfg)
+            h, (k, v), a = block(h, _layer_slice(layers, i, acts), cfg, acts)
             aux = aux + a
             if collect_cache:
                 ks.append(k)
@@ -434,7 +466,7 @@ def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
         body = _remat(_vlm_group, cfg)
         aux, ks, vs, xks, xvs = 0.0, [], [], [], []
         for g in range(n_groups):
-            h, a, cached = body(h, _at(params["groups"], g), cfg, vision, collect_cache)
+            h, a, cached = body(h, _at(params["groups"], g), cfg, vision, collect_cache, acts)
             aux = aux + a
             if collect_cache:
                 (k, v), (xk, xv) = cached
@@ -454,7 +486,7 @@ def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
         sks, svs, convs, ssms = [], [], [], []
         for g in range(n_groups):
             h, cached = body(h, params["shared"], _at(params["mamba_groups"], g), cfg,
-                             collect_cache)
+                             collect_cache, acts)
             if collect_cache:
                 (k, v), conv, ssm_st = cached
                 sks.append(k)
@@ -464,7 +496,7 @@ def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
         tail_block = _remat(_mamba_block, cfg)
         tail_sts = []
         for j in range(tail):
-            h, st = tail_block(h, _at(params["tail"], j), cfg)
+            h, st = tail_block(h, _at(params["tail"], j), cfg, acts)
             if collect_cache:
                 tail_sts.append(st)
         caches = None
@@ -480,7 +512,7 @@ def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
         block = _remat(_rwkv_block, cfg)
         sts = []
         for i in range(cfg.n_layers):
-            h, st = block(h, _at(params["layers"], i), cfg)
+            h, st = block(h, _at(params["layers"], i), cfg, acts)
             if collect_cache:
                 sts.append(st)
         caches = None
@@ -492,14 +524,14 @@ def backbone(params, cfg: ModelConfig, h, batch, collect_cache=False):
     raise ValueError(cfg.pattern)
 
 
-def _xent_chunk(hb, head_w, lb):
-    logits = (hb @ head_w).float()
+def _xent_chunk(hb, head_w, lb, acts):
+    logits = L.with_sharding((hb @ head_w).float(), acts.get("logits"))
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, lb[..., None], dim=-1)[..., 0]
     return (logz - ll).sum()
 
 
-def chunked_xent(h, head_w, labels, chunk: int):
+def chunked_xent(h, head_w, labels, chunk: int, acts=None):
     """Sequence-chunked softmax cross-entropy (logits O(B·chunk·V) at a
     time).  Under autograd each chunk is checkpointed, so its logits are
     recomputed in the backward rather than kept."""
@@ -512,26 +544,26 @@ def chunked_xent(h, head_w, labels, chunk: int):
         body = functools.partial(checkpoint, _xent_chunk, use_reentrant=False)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, chunk):
-        total = total + body(h[:, i:i + chunk], head_w, labels[:, i:i + chunk])
+        total = total + body(h[:, i:i + chunk], head_w, labels[:, i:i + chunk], acts or {})
     return total / (b * s)
 
 
-def forward_train(params, cfg: ModelConfig, batch):
+def forward_train(params, cfg: ModelConfig, batch, acts=None):
     """The training loss, (xent + 0.01·aux, {"xent", "aux"}), differentiable
     in the parameters' tensors."""
-    h = embed_inputs(params, cfg, batch)
-    h, _, aux = backbone(params, cfg, h, batch, collect_cache=False)
+    h = embed_inputs(params, cfg, batch, acts)
+    h, _, aux = backbone(params, cfg, h, batch, acts=acts, collect_cache=False)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     labels = _as_input(batch["labels"], h.device).long()
-    loss = chunked_xent(h, params["head"], labels, cfg.loss_chunk)
+    loss = chunked_xent(h, params["head"], labels, cfg.loss_chunk, acts)
     return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
 
-def forward_prefill(params, cfg: ModelConfig, batch):
+def forward_prefill(params, cfg: ModelConfig, batch, acts=None):
     """Last-position logits (B, V) in float32 and the decode caches, whose
     attention entries hold the prompt's S positions."""
-    h = embed_inputs(params, cfg, batch)
-    h, caches, _ = backbone(params, cfg, h, batch, collect_cache=True)
+    h = embed_inputs(params, cfg, batch, acts)
+    h, caches, _ = backbone(params, cfg, h, batch, acts=acts, collect_cache=True)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = (h[:, -1] @ params["head"]).float()
     return logits, caches
@@ -539,14 +571,15 @@ def forward_prefill(params, cfg: ModelConfig, batch):
 
 # -- mode: decode ----------------------------------------------------------------
 
-def forward_decode(params, cfg: ModelConfig, batch, caches, pos):
+def forward_decode(params, cfg: ModelConfig, batch, caches, pos, acts=None):
     """One-token decode against full caches; returns (logits, caches).
 
     ``pos`` is the write position; attention reads the cache up to it.  The
     caches' tensors are updated in place and returned in a new dict.
     """
     pos = int(pos)
-    h = embed_inputs(params, cfg, batch)     # (B, 1, D)
+    acts = acts or {}
+    h = embed_inputs(params, cfg, batch, acts)     # (B, 1, D)
 
     if cfg.pattern == "uniform":
         for i in range(cfg.n_layers):
@@ -555,9 +588,9 @@ def forward_decode(params, cfg: ModelConfig, batch, caches, pos):
                                     caches["k"][i], caches["v"][i], pos)
             m_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
             if cfg.moe is not None:
-                m, _ = L.moe_block(m_in, lp["moe"], cfg)
+                m, _ = L.moe_block(m_in, lp["moe"], cfg, acts=acts)
             else:
-                m = L.mlp_block(m_in, lp["mlp"], cfg)
+                m = L.mlp_block(m_in, lp["mlp"], cfg, acts=acts)
             h = h + m
 
     elif cfg.pattern == "vlm":
@@ -568,15 +601,16 @@ def forward_decode(params, cfg: ModelConfig, batch, caches, pos):
                 lp = _at(gp["self"], j)
                 h = _decode_attn_update(L.rms_norm(h, lp["ln1"], cfg.norm_eps), h, lp["attn"],
                                         cfg, caches["k"][g, j], caches["v"][g, j], pos)
-                h = h + L.mlp_block(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp["mlp"], cfg)
-            h, _ = _cross_group(h, gp, cfg, kv=(caches["xk"][g], caches["xv"][g]))
+                h = h + L.mlp_block(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp["mlp"], cfg,
+                                    acts=acts)
+            h, _ = _cross_group(h, gp, cfg, acts, kv=(caches["xk"][g], caches["xv"][g]))
 
     elif cfg.pattern == "zamba":
         sp = params["shared"]
         n_groups, per, tail = zamba_layout(cfg)
 
         def mamba(h, mp, conv, ssm_st):
-            h, st = _mamba_block(h, mp, cfg, state={"conv": conv, "ssm": ssm_st})
+            h, st = _mamba_block(h, mp, cfg, acts, state={"conv": conv, "ssm": ssm_st})
             conv.copy_(st["conv"])
             ssm_st.copy_(st["ssm"])
             return h
@@ -584,7 +618,8 @@ def forward_decode(params, cfg: ModelConfig, batch, caches, pos):
         for g in range(n_groups):
             h = _decode_attn_update(L.rms_norm(h, sp["ln1"], cfg.norm_eps), h, sp["attn"], cfg,
                                     caches["shared_k"][g], caches["shared_v"][g], pos)
-            h = h + L.mlp_block(L.rms_norm(h, sp["ln2"], cfg.norm_eps), sp["mlp"], cfg)
+            h = h + L.mlp_block(L.rms_norm(h, sp["ln2"], cfg.norm_eps), sp["mlp"], cfg,
+                                acts=acts)
             for j in range(per):
                 h = mamba(h, _at(params["mamba_groups"], g, j),
                           caches["conv"][g, j], caches["ssm"][g, j])
@@ -594,7 +629,7 @@ def forward_decode(params, cfg: ModelConfig, batch, caches, pos):
     elif cfg.pattern == "rwkv":
         for i in range(cfg.n_layers):
             state = {name: caches[name][i] for name in ("tm_shift", "cm_shift", "wkv")}
-            h, st = _rwkv_block(h, _at(params["layers"], i), cfg, state=state)
+            h, st = _rwkv_block(h, _at(params["layers"], i), cfg, acts, state=state)
             for name, t in state.items():
                 t.copy_(st[name])
     else:
@@ -683,6 +718,7 @@ class LM:
 
     param_specs = staticmethod(param_specs)
     init_params = staticmethod(init_params)
+    abstract_params = staticmethod(abstract_params)
     forward_train = staticmethod(forward_train)
     forward_prefill = staticmethod(forward_prefill)
     forward_decode = staticmethod(forward_decode)

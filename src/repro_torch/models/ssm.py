@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import rms_norm
+from .layers import rms_norm, with_sharding
 
 
 def _pad_seq(x, pad: int):
@@ -110,7 +110,7 @@ def ssd_decode_step(S, x_t, log_a_t, b_t, c_t):
     return S, y
 
 
-def mamba2_mix(x, p, cfg, state=None):
+def mamba2_mix(x, p, cfg, state=None, acts=None):
     """Full Mamba2 mixer: in_proj → causal depthwise conv → SSD → gated out.
 
     state (decode): dict(conv=(B, conv-1, d_in), ssm=(B,H,N,P)) or None.
@@ -150,6 +150,7 @@ def mamba2_mix(x, p, cfg, state=None):
     y = y + p["d_skip"][None, None, :, None] * xc.reshape(b, s, h, pdim).float()
     y = y.reshape(b, s, d_in)
     y = rms_norm(y.to(x.dtype) * F.silu(z), p["norm"], cfg.norm_eps)
+    y = with_sharding(y, (acts or {}).get("ff"))
     out = y @ p["out_proj"]
     return out, {"conv": new_conv, "ssm": S_fin}
 
@@ -241,7 +242,7 @@ def _token_shift(x, state):
     return prev, x[:, -1]
 
 
-def rwkv_time_mix(x, p, cfg, state=None):
+def rwkv_time_mix(x, p, cfg, state=None, acts=None):
     """RWKV6 time-mix with data-dependent decay.
 
     state (decode): dict(shift=(B, D), wkv=(B,H,K,V)).  Returns (y, new_state).
@@ -280,7 +281,8 @@ def rwkv_time_mix(x, p, cfg, state=None):
     var = o.var(-1, keepdim=True, correction=0)
     o = (o - mean) * torch.rsqrt(var + 64e-5)
     o = o.reshape(b, s, d) * p["ln_x"][None, None, :]
-    y = (o.to(x.dtype) * g) @ p["wo"]
+    o = with_sharding(o.to(x.dtype) * g, (acts or {}).get("ff"))
+    y = o @ p["wo"]
     return y, {"shift": new_shift, "wkv": S_fin}
 
 

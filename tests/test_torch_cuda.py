@@ -23,7 +23,8 @@ the CPU to rtol / atol 5e-4; one smoke train step's loss to rtol 1e-5 and
 every gradient leaf to rtol 1e-3 plus 5e-4 of the leaf's largest element
 (the card's embedding and MoE backward add with atomics, in any order);
 AdamW on identical gradients to rtol 1e-5 / atol 1e-7, its bfloat16 first
-moment to one bf16 ulp."""
+moment to one bf16 ulp.  Steps under the sharding rules equal steps without
+them bit for bit."""
 
 import numpy as np
 import pytest
@@ -41,12 +42,14 @@ from repro_torch.kernels.semiring_contract import ops as sc_ops
 from repro_torch.kernels.semiring_contract.ref import semiring_contract_ref
 from repro_torch.kernels.tropical_contract import ops as tc_ops
 from repro_torch.kernels.tropical_contract.ref import tropical_contract_ref
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.serve import pad_caches
 from repro_torch.checkpoint.checkpointer import restore_pytree, save_pytree
 from repro_torch import tree as lm_tree
 from repro_torch.models import convert
 from repro_torch.models import layers as lm_layers
 from repro_torch.optim import adamw
+from repro_torch.runtime import sharding as lm_sharding
 from repro_torch.runtime import step as lm_step
 from repro_torch.runtime.step import make_decode_step, make_prefill_step
 from repro_torch.relational import schema
@@ -819,6 +822,40 @@ def test_cuda_lm_smoke_train_step_matches_cpu(cuda, no_tf32, arch):
         flat_c = dict(lm_tree.paths(out["cpu"][part]))
         for path, t in lm_tree.paths(out[str(cuda)][part]):
             torch.testing.assert_close(t.cpu(), flat_c[path], **ADAMW_TOL[t.dtype], msg=str(path))
+
+
+@pytest.fixture
+def deterministic():
+    old = torch.are_deterministic_algorithms_enabled(), \
+        torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-1.2b"])
+def test_cuda_steps_with_sharding_rules_are_bit_equal(cuda, no_tf32, deterministic, arch):
+    """``with_sharding`` is the identity on the card: the loss and gradients,
+    a prefill and a decode step under the multi-pod rules equal those without
+    rules, bit for bit (deterministic algorithms, so the embedding's
+    backward adds in one order)."""
+    cfg = smoke_config(get_config(arch))
+    tree = random_tree(cfg, 1)
+    batch = make_batch(cfg, 2, 32, seed=2, labels=True)
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    rules = lm_sharding.make_rules(make_production_mesh(multi_pod=True))
+    runs = []
+    for r in (None, rules):
+        params = convert.params_from_reference(cfg, tree, cuda)
+        acts = lm_step.acts_for(cfg, r, layer_params=True)
+        loss, _, _, grads = lm_step.loss_and_grads(cfg, params, batch, acts)
+        logits, caches = lm_step.make_prefill_step(cfg, r)(params, prompt)
+        caches = pad_caches(caches, 33)
+        tok = {"tokens": logits.argmax(-1)[:, None].to(torch.int32)}
+        step_logits, caches = lm_step.make_decode_step(cfg, r)(params, tok, caches, 32)
+        runs.append([loss, *grads, logits, step_logits, *caches.values()])
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a, b), i
 
 
 def test_cuda_checkpoint_restores_onto_the_card(cuda, tmp_path):

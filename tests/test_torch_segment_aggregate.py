@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.segment_aggregate.ops import aggregate as j_aggregate
 from repro.kernels.segment_aggregate.ops import aggregate_op as j_aggregate_op
 from repro.kernels.segment_aggregate.ops import level_aggregate as j_level_aggregate
 from repro_torch.kernels.segment_aggregate import ops
@@ -73,3 +74,17 @@ def test_level_kernel_pad_rows_match_nothing():
     vals = torch.tensor([[1.0], [100.0], [3.0], [-100.0], [2.0]])
     for op, want in (("sum", [1.0, 2.0, 3.0]), ("min", [1.0, 2.0, 3.0])):
         assert ops.level_segment_aggregate(codes, vals, 3, op)[:, 0].tolist() == want
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_aggregate_matches_reference_either_way(op, use_kernel):
+    """``aggregate``: ``use_kernel`` picks the wrapper (the plain version on
+    the CPU), ``use_kernel=False`` the plain version; both equal the
+    reference's ``aggregate`` with the same choice (its kernel in interpret
+    mode)."""
+    codes, vals = _inputs(1000, 64, 3, 11)
+    want = j_aggregate(jnp.asarray(codes), jnp.asarray(vals), 64, op=op, use_kernel=use_kernel)
+    got = ops.aggregate(torch.as_tensor(codes), torch.as_tensor(vals), 64, op=op,
+                        use_kernel=use_kernel)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())

@@ -15,6 +15,7 @@ import pytest
 import torch
 from _hypothesis_compat import given, settings, strategies as st
 
+from repro.kernels.semiring_contract.ops import contract as j_contract
 from repro.kernels.semiring_contract.ops import contract_op as j_contract_op
 from repro_torch.kernels import build, launch
 from repro_torch.kernels.semiring_contract import ops
@@ -208,3 +209,17 @@ def test_library_name_hashes_the_shared_contract_header(tmp_path, monkeypatch):
     edited = [build.library_path(p, s, sym) for p, s, sym in build.KERNELS
               if p.endswith("_contract")]
     assert len(names) == 2 and all(a != b for a, b in zip(names, edited))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "mask"])
+def test_contract_matches_reference_contract(masked):
+    """``contract``, the reference's convenience call, on integer-valued
+    data (exact): the plain version here, as the reference's off the TPU."""
+    rng = np.random.default_rng(7)
+    m = rng.integers(-20, 21, (30, 200)).astype(np.float32)
+    r = rng.integers(-20, 21, (200, 4)).astype(np.float32)
+    mask = (rng.random(200) > 0.5).astype(np.float32) if masked else None
+    want = j_contract(jnp.asarray(m), jnp.asarray(r), None if mask is None else jnp.asarray(mask))
+    got = ops.contract(torch.as_tensor(m), torch.as_tensor(r),
+                       None if mask is None else torch.as_tensor(mask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

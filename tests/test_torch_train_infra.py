@@ -8,9 +8,10 @@ conversion, and ``launch.train`` on the CPU (failure recovery, a restart
 whose losses are bit-equal to an uninterrupted run, ``--resume``).
 
 Mirrors ``test_runtime_infra.py`` but for
-``test_sharding_rules_divisibility_fallback`` (the sharding rules are not
-ported).  Every test writes only under ``tmp_path``, passes ``--ckpt-dir``
-to ``launch.train``, and closes every pipeline and checkpointer it starts.
+``test_sharding_rules_divisibility_fallback``, which
+``test_torch_sharding.py`` mirrors.  Every test writes only under
+``tmp_path``, passes ``--ckpt-dir`` to ``launch.train``, and closes every
+pipeline and checkpointer it starts.
 Tolerances: compression against the reference to rtol 1e-6 (the same
 float32 operations); everything else exact.
 """

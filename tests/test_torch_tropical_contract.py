@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.tropical_contract.ops import contract as j_contract
 from repro.kernels.tropical_contract.ops import contract_op as j_contract_op
 from repro_torch.kernels import launch
 from repro_torch.kernels.tropical_contract import ops
@@ -69,4 +70,20 @@ def test_contract_op_on_views_matches_pallas_kernel(view, is_min):
     want = j_contract_op(jnp.asarray(tm.numpy()), jnp.asarray(tr.numpy()), is_min=is_min,
                          interpret=True)
     assert torch.equal(got, tropical_contract_ref(tm, tr, is_min))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("is_min", [True, False])
+def test_contract_matches_reference_contract(is_min, use_kernel):
+    """``contract``: ``use_kernel`` picks the wrapper (the plain version on
+    the CPU), ``use_kernel=False`` the plain version; both equal the
+    reference's ``contract`` with the same choice (its kernel in interpret
+    mode)."""
+    rng = np.random.default_rng(9)
+    m = rng.standard_normal((20, 33)).astype(np.float32)
+    r = rng.standard_normal((33, 5)).astype(np.float32)
+    want = j_contract(jnp.asarray(m), jnp.asarray(r), is_min=is_min, use_kernel=use_kernel)
+    got = ops.contract(torch.as_tensor(m), torch.as_tensor(r), is_min=is_min,
+                       use_kernel=use_kernel)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
