@@ -13,7 +13,11 @@ CUDA toolkit.  Phases:
    PyTorch versions on the card, for sum/min/max, at small shapes and at the
    main path's shapes (N = 2^24 rows, G up to 100 000, V in {1, 3, 8}),
    with empty segments and -1 pad rows.  Min/max and sums of integer-valued
-   data must match exactly; gamma-valued sums to rtol 1e-5.  Each shape is
+   data must match exactly; gamma-valued sums to rtol 1e-5.  Gamma-valued
+   sums at 2^24 rows, one message per regime and a skewed one, must also
+   give the same bits over repeats, a second stream and a CUDA graph
+   replay, through ``aggregate_op``, alone through ``level_aggregate`` and
+   as members of mixed, reversed and split level launches.  Each shape is
    timed: kernel, memory bound at 3.35 TB/s, plain version, and one
    ``index_add_`` / ``scatter_reduce_`` call on the same inputs.  Then
    ``semiring_contract`` (float32, float16, σ mask) and ``tropical_contract``
@@ -31,7 +35,11 @@ CUDA toolkit.  Phases:
    both segment kernels must have launched.  Answers must equal the same
    sequence run by the port on the CPU and a numpy brute force over the
    join (rtol 1e-5 for float sums, exact for MAX), with equal message
-   counts.  One more run under ``torch.profiler`` gives device time by kernel;
+   counts, and the answers of two fresh engines must be the same bits.  A
+   fresh engine recomputes each message of the dashboard query edge by edge
+   (kernel 1): it must equal the fused calibration's copy (kernel 2) bit for
+   bit; ``check_calibration`` must hold on the card.  One more run under
+   ``torch.profiler`` gives device time by kernel;
 5. dense phase: the same sequence on the same catalog with
    ``dense_rows_threshold=100_000``, so every dimension bag (User, Role,
    Camp, Acc) is dense.  Counts reset before, read after: both contract
@@ -456,7 +464,7 @@ def kernel_phase(torch, ops, ref, report: dict) -> None:
                     library_ms=time_ms(library_call(codes, x, g, op)),
                     bound_ms=bound_ms(n, v, g),
                 ))
-    # gamma-valued sums: float32 atomics against the float64-accumulated plain version
+    # gamma-valued sums: float32 sums against the float64-accumulated plain version
     for n, g, v in main:
         codes = codes_for(n, g)
         x = torch.distributions.Gamma(torch.tensor(2.0, device=dev),
@@ -464,6 +472,7 @@ def kernel_phase(torch, ops, ref, report: dict) -> None:
         got = ops.aggregate_op(codes, x, g, "sum")
         torch.testing.assert_close(got, ref.segment_aggregate_ref(codes, x, g, "sum"),
                                    rtol=1e-5, atol=0)
+    report["same_bits"] = same_bits_phase(torch, ops, ref, main, codes_for)
     # level kernel: several messages, ragged widths, -1 pad rows, empty segments
     specs_small = [(30, 5, 1), (1000, 64, 4), (77, 13, 3), (9, 300, 2)]
     specs_main = [(1 << 24, 50_000, 8), (1 << 24, 25_000, 8)]
@@ -484,7 +493,7 @@ def kernel_phase(torch, ops, ref, report: dict) -> None:
                 rows.append(dict(
                     kernel="level_segment_aggregate", n=n_all, g=total, v=8, op=op,
                     data="integer",
-                    ms=time_ms(lambda: ops.level_segment_aggregate(cat_codes, cat_vals, total, op)),
+                    ms=time_ms(lambda: ops.level_aggregate(items, op=op)),
                     plain_ms=time_ms(lambda: ref.level_segment_aggregate_ref(
                         cat_codes, cat_vals, total, op), 3, 3),
                     library_ms=time_ms(library_call(cat_codes, cat_vals, total, op)),
@@ -499,6 +508,64 @@ def kernel_phase(torch, ops, ref, report: dict) -> None:
               f"kernel {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms  "
               f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms", flush=True)
     report["kernel_phase"] = rows
+
+
+def same_bits_phase(torch, ops, ref, main: list, codes_for) -> dict:
+    """The sum contract of csrc/segment_aggregate.cuh at 2^24 rows on gamma
+    data: one message per main shape (every regime of
+    ``launch.segment_geometry``) and a skewed one (a third of its rows in
+    one segment, cut into many pieces).  Each message's sums are within the
+    per-segment tolerance of the float64 plain version (``hold_plain``),
+    and have the same bits over repeats, on a second stream, in a CUDA graph
+    replay, through ``aggregate_op``, alone through ``level_aggregate``, and
+    as a member of a mixed level launch, of the same launch reversed and of
+    a launch split in two (as the level plan splits past
+    ``plans.ROWWISE_MAX_ELEMS``)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    gamma = torch.distributions.Gamma(torch.tensor(2.0, device=dev),
+                                      torch.tensor(1 / 5000.0, device=dev))
+    msgs = []
+    for n, g, v in main + [(1 << 24, 50_000, 1)]:
+        codes = codes_for(n, g)
+        if len(msgs) == len(main):
+            codes[torch.rand(n, generator=gen, device=dev) < 1 / 3] = 0
+        msgs.append((codes, gamma.sample((n, v)), g))
+    alone = [ops.aggregate_op(c, x, g, "sum") for c, x, g in msgs]
+    errs = [hold_plain(torch, ref, c, x, g, "sum", a, False,
+                       f"gamma sum N={c.shape[0]} G={g} V={x.shape[1]}")
+            for (c, x, g), a in zip(msgs, alone)]
+    paths = {
+        "repeat": [ops.aggregate_op(c, x, g, "sum") for c, x, g in msgs],
+        "lone level": [ops.level_aggregate([m], op="sum")[0] for m in msgs],
+        "mixed level": ops.level_aggregate(msgs, op="sum"),
+        "reversed level": ops.level_aggregate(msgs[::-1], op="sum")[::-1],
+        "split level": (ops.level_aggregate(msgs[:2], op="sum")
+                        + ops.level_aggregate(msgs[2:], op="sum")),
+    }
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paths["second stream"] = [ops.aggregate_op(c, x, g, "sum") for c, x, g in msgs]
+        ops.level_aggregate(msgs, op="sum")  # the side stream's scratch, before the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            paths["graph replay"] = ops.level_aggregate(msgs, op="sum")
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    for path, outs in paths.items():
+        for (c, x, g), a, o in zip(msgs, alone, outs):
+            check(torch.equal(o, a), f"gamma sum N={c.shape[0]} G={g} V={x.shape[1]}: "
+                  f"{path} gives other bits than aggregate_op")
+    del graph
+    regimes = [ops._launch.segment_geometry(c.shape[0], g, x.shape[1]).name for c, x, g in msgs]
+    print(f"  same bits: {len(msgs)} gamma messages of 2^24 rows ({', '.join(regimes)}) equal "
+          f"over {', '.join(paths)}; max relative errors "
+          f"{[round(e[1], 9) for e in errs]} against the float64 plain version", flush=True)
+    return dict(messages=[(c.shape[0], g, x.shape[1]) for c, x, g in msgs], regimes=regimes,
+                paths=list(paths), max_abs_err=[e[0] for e in errs],
+                max_rel_err=[e[1] for e in errs])
 
 
 # the regimes' record shapes (csrc/contract.cuh): wide (16, 1e5) x (1e5, 8),
@@ -796,15 +863,19 @@ def slice_phase(torch, np, K, rt, schema, report: dict) -> dict:
     kernel = K.seg_kernel
     real_launch = kernel.launch
 
-    def recording_launch(name, codes, values, out, op):
-        shapes.append((name, int(values.shape[0]), int(values.shape[1]), int(out.shape[0]), op))
-        if name not in captured or values.numel() > captured[name][1].numel():
-            captured[name] = (codes.clone(), values.clone(), int(out.shape[0]), op)
-        real_launch(name, codes, values, out, op)
+    def recording_launch(name, members, op):
+        for codes, values, out, _, _ in members:
+            shapes.append((name, int(values.shape[0]), int(values.shape[1]), int(out.shape[0]),
+                           op))
+        size = sum(values.numel() for _, values, _, _, _ in members)
+        if name not in captured or size > captured[name][1]:
+            captured[name] = ([(c.clone(), x.clone(), int(o.shape[0]))
+                               for c, x, o, _, _ in members], size, op)
+        return real_launch(name, members, op)
 
     kernel.launch = recording_launch
     try:
-        quickstart(torch, rt, cat, "cuda")
+        warm = quickstart(torch, rt, cat, "cuda")
     finally:
         kernel.launch = real_launch
     reset_launches(K)
@@ -813,6 +884,17 @@ def slice_phase(torch, np, K, rt, schema, report: dict) -> dict:
     print(f"slice: launches on the main path {launches}", flush=True)
     for name in SEGMENT:
         check(launches[name] > 0, f"{name} never launched on the main path")
+    for name, answer in gpu["answers"].items():
+        check(torch.equal(answer, warm["answers"][name]),
+              f"{name}: two fresh engines answer different bits")
+    print("slice: two fresh engines give the same answers bit for bit (float SUM(amount) "
+          "included)", flush=True)
+    edges = per_edge_check(torch, K, rt, cat, gpu["treant"])
+    t0 = time.perf_counter()
+    pie = rt[1].make(cat, ring="sum", measure=("Opp", "amount")).with_group_by("camp_type")
+    check(gpu["treant"].engine.check_calibration(pie), "check_calibration fails on the card")
+    print(f"slice: check_calibration holds on the card ({time.perf_counter() - t0:.2f} s)",
+          flush=True)
     t0 = time.perf_counter()
     cpu = quickstart(torch, rt, cat, "cpu")
     cpu_s = time.perf_counter() - t0
@@ -838,10 +920,39 @@ def slice_phase(torch, np, K, rt, schema, report: dict) -> dict:
         latency_ms={k: v * 1e3 for k, v in gpu["latency_s"].items()},
         cpu_offline_ms=cpu["offline_s"] * 1e3,
         cpu_latency_ms={k: v * 1e3 for k, v in cpu["latency_s"].items()},
-        plans=gpu["plans"], launch_shapes=shapes,
+        plans=gpu["plans"], launch_shapes=shapes, per_edge=edges, check_calibration=True,
     )
     profile_phase(torch, "slice", lambda: quickstart(torch, rt, cat, "cuda"), report)
     return dict(cat=cat, captured=captured, launches=launches, answers=gpu["answers"])
+
+
+def per_edge_check(torch, K, rt, cat, t) -> dict:
+    """A fresh engine recomputes every message of the calibrated dashboard
+    query edge by edge (``CJTEngine.message``: kernel 1 through
+    ``aggregate_op``); each must equal, bit for bit, the copy that the
+    level-fused calibration cached (kernel 2)."""
+    _, Query, sr, _, _ = rt
+    eng = t.engine
+    q = Query.make(cat, ring="sum", measure=("Opp", "amount")).with_group_by("camp_type")
+    fresh = type(eng)(eng.jt, cat, eng.ring, lifts=eng.lifts, device="cuda")
+    placement = eng.place_predicates(q)
+    before = dict(K.seg_ops.LAUNCHES)
+    n = 0
+    for u, v in eng.jt.directed_edges():
+        sig = eng.store.full_sig(eng.edge_sig(q, u, v, placement), eng.gamma_carry(q, u, v))
+        cached = eng.store._data.get(sig)
+        check(cached is not None, f"message {u}->{v} is not cached after calibration")
+        mine = fresh.message(q, u, v)
+        for a, b in zip(sr.leaves(mine.field), sr.leaves(cached.field)):
+            check(a.shape == b.shape and torch.equal(a, b),
+                  f"message {u}->{v} recomputed per edge differs from its fused-calibration copy")
+        n += 1
+    torch.cuda.synchronize()
+    launches = {k: K.seg_ops.LAUNCHES[k] - before[k] for k in before}
+    check(launches["segment_aggregate"] > 0, "the per-edge recompute never reached kernel 1")
+    print(f"slice: {n} messages recomputed per edge (kernel 1, {launches}) equal the fused "
+          f"calibration's (kernel 2) bit for bit", flush=True)
+    return dict(edges=n, launches=launches)
 
 
 def check_plan_counters(gpu: dict, cpu: dict) -> None:
@@ -1099,35 +1210,67 @@ def contract_shapes_phase(torch, K, captured: dict, report: dict) -> list[dict]:
 # phase 9: one record per kernel
 # ---------------------------------------------------------------------------
 
+def segment_call(ops, name: str, items: list, op: str):
+    """``(fn, args)``: the wrapper call that launches kernel ``name`` over
+    ``items`` (``(codes, values, g)`` messages), its tensors flat in ``args``
+    so that ``device_ms`` can rotate copies of them."""
+    gs = [g for _, _, g in items]
+    args = tuple(t for c, x, _ in items for t in (c, x))
+    if name == "segment_aggregate":
+        (g,) = gs
+        return (lambda c, x: ops.aggregate_op(c, x, g, op)), args
+    return (lambda *flat: ops.level_aggregate(
+        [(flat[2 * j], flat[2 * j + 1], g) for j, g in enumerate(gs)], op=op)), args
+
+
+def concatenated(torch, items: list, op: str):
+    """Messages as one reduction (global segment ids, the ⊕-identity in the
+    columns past a message's width): the operands of the one PyTorch call
+    that computes a level launch's function."""
+    ident = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}[op]
+    v_max = max(x.shape[1] for _, x, _ in items)
+    codes, vals, off = [], [], 0
+    for c, x, g in items:
+        codes.append(c + off)
+        vals.append(torch.nn.functional.pad(x, (0, v_max - x.shape[1]), value=ident))
+        off += g
+    return torch.cat(codes), torch.cat(vals), off
+
+
 def kernel_records(torch, K, sliced: dict, contract_rows: list[dict],
                    dense: dict) -> list[dict]:
     """Time each kernel on the inputs of its largest main-path launch."""
     ops, ref = K.seg_ops, K.seg_ref
-    wrappers = {"segment_aggregate": (ops.aggregate_op, ref.segment_aggregate_ref),
-                "level_segment_aggregate": (ops.level_segment_aggregate,
-                                            ref.level_segment_aggregate_ref)}
     records = []
     for name in SEGMENT:
         source, replaces = KERNEL_SOURCES[name]
-        codes, values, g, op = sliced["captured"][name]
-        run, plain = wrappers[name]
-        got, want = run(codes, values, g, op), plain(codes, values, g, op)
+        items, _, op = sliced["captured"][name]
+        run, args = segment_call(ops, name, items, op)
+        outs = run(*args)
+        outs = outs if isinstance(outs, list) else [outs]
+        wants = [ref.segment_aggregate_ref(c, x, g, op) for c, x, g in items]
         torch.cuda.synchronize()
-        if op == "sum":
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
-        else:
-            check(torch.equal(got, want), f"{name} disagrees on its main-path inputs")
-        n, v = values.shape
+        for got, want in zip(outs, wants):
+            if op == "sum":
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+            else:
+                check(torch.equal(got, want), f"{name} disagrees on its main-path inputs")
+        cat_codes, cat_vals, total = concatenated(torch, items, op)
+        n, v = cat_vals.shape
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sliced["launches"][name],
-            "max_abs_err": max_abs_err(got, want),
-            "ms": time_ms(lambda: run(codes, values, g, op)),
-            "device_ms": device_ms(run, (codes, values, g, op)),
-            "plain_ms": time_ms(lambda: plain(codes, values, g, op), 3, 3),
-            "bound_ms": bound_ms(n, v, g), "bound_by": "bytes",
-            "library_ms": time_ms(library_call(codes, values, g, op)),
-            "shape": {"n": n, "v": v, "g": g, "op": op},
+            "max_abs_err": max(max_abs_err(a, b) for a, b in zip(outs, wants)),
+            "ms": time_ms(lambda: run(*args)),
+            "device_ms": device_ms(run, args),
+            "plain_ms": time_ms(lambda: [ref.segment_aggregate_ref(c, x, g, op)
+                                         for c, x, g in items], 3, 3),
+            "bound_ms": sum(bound_ms(c.shape[0], x.shape[1], g) for c, x, g in items),
+            "bound_by": "bytes",
+            "library_ms": time_ms(library_call(cat_codes, cat_vals, total, op)),
+            "shape": {"n": n, "v": v, "g": total, "op": op, "members": len(items),
+                      "regimes": [K.launch.segment_geometry(c.shape[0], g, x.shape[1]).name
+                                  for c, x, g in items]},
         })
     for name in CONTRACT:
         source, replaces = KERNEL_SOURCES[name]
@@ -1692,7 +1835,7 @@ def hold_plain(torch, ref, codes, values, g: int, op: str, got, exact: bool,
     """One segment reduction's output against ``ref.segment_aggregate_ref`` on
     the same tensors, a block of columns at a time.  Bit for bit when
     ``exact``; else each cell of a segment of n rows to a relative
-    max(``AUDIT_RTOL``, λ·√n·u), u = 2^-24: float32 atomics add n
+    max(``AUDIT_RTOL``, λ·√n·u), u = 2^-24: a float32 sum adds n
     non-negative terms in any order, and the float64 plain sum stands for
     the exact one; λ·√n·u is the probabilistic bound of such a sum's
     rounding error (Higham and Mary, 2019), λ = ``AUDIT_LAMBDA``.  Returns

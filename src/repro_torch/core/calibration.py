@@ -402,6 +402,16 @@ class MessageStore:
     def __len__(self):
         return len(self._data)
 
+    def block_until_ready(self) -> None:
+        """Barrier on every cached factor: message passing launches
+        asynchronously, so think-time calibration can leave device work in
+        flight; a timer drains it here first.  Synchronizes each card that
+        holds a cached factor (nothing to wait for on the CPU)."""
+        cards = {leaf.device for f in self._data.values() for leaf in sr.leaves(f.field)
+                 if leaf.device.type == "cuda"}
+        for card in cards:
+            torch.cuda.synchronize(card)
+
     def reset_stats(self):
         self.hits = self.misses = self.widen_hits = 0
         self.widen_scans = self.widen_scan_steps = 0
@@ -1339,10 +1349,12 @@ class CJTEngine:
             self.run_calibration_level(plans, stats_list)
         return stats_list, effective
 
-    def unpin_query(self, q: Query) -> int:
+    def unpin_query(self, q: Query, root: str | None = None) -> int:
         """Release this query's calibration pins (session GC).  Messages stay
         cached and servable; only the eviction exemption goes.  Returns the
-        number of previously pinned edges released."""
+        number of previously pinned edges released.  Every directed edge is
+        released whatever ``root`` the calibration took, so ``root`` (the
+        reference's signature) changes nothing."""
         placement = self.place_predicates(q)
         n = 0
         for u, v in self.jt.directed_edges():
@@ -1450,4 +1462,21 @@ class CJTEngine:
             base = self.edge_sig(q, u, v, placement)
             if not self.store.contains(base, self.gamma_carry(q, u, v)):
                 return False
+        return True
+
+    def check_calibration(self, q: Query) -> bool:
+        """Definitional check (§3.4.1): the absorptions at the two ends of
+        every edge agree on their separator, in float64 to rtol 1e-4 and
+        atol 1e-5 (the reference's tolerances)."""
+        placement = self.place_predicates(q)
+        for u, v in self.jt.directed_edges():
+            if u > v:
+                continue
+            sep = self.jt.separator(u, v)
+            au = self.absorb(q, u, placement, keep=sep).project_to(sep)
+            av = self.absorb(q, v, placement, keep=sep).project_to(sep)
+            for x, y in zip(sr.leaves(au.field), sr.leaves(av.field)):
+                if not np.allclose(x.double().cpu().numpy(), y.double().cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5):
+                    return False
         return True

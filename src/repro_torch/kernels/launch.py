@@ -13,7 +13,11 @@ launch is most of what a call costs.  This module keeps that small:
   kernels (regime, grid, block, shared memory, split of the contracted
   axis, workspace) once per (shapes, strides, element size, alignment) and
   caches it; the C entry point reads it from a host array and launches.
-  The geometry lives here, in Python, so the CPU tests reach it.
+- :func:`segment_geometry` does the same for the two segment kernels, per
+  message from its (rows, segments, columns) alone, and :func:`pack_members`
+  lays a launch's messages out in the C member table (:class:`SegTable`).
+
+The geometry lives here, in Python, so the CPU tests reach it.
 
 Nothing here builds or loads a library at import time.
 """
@@ -44,9 +48,10 @@ class Kernel:
         self._stream = None
         self._scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def scratch(self, device: torch.device, geom: Geometry) -> tuple[int, int]:
+    def scratch(self, device: torch.device, geom: Geometry | SegLaunch) -> tuple[int, int]:
         """Data pointers of the float32 workspace and the int32 tickets that
-        ``geom`` needs, kept for launches on the current stream of ``device``.
+        ``geom`` needs (its ``ws`` and ``tickets``), kept for launches on the
+        current stream of ``device``.
 
         They are keyed by (device, stream).  Launches on one stream run in
         order, so a launch's partials are read and its tickets reset (by its
@@ -249,3 +254,151 @@ def contract_args(m: torch.Tensor, r: torch.Tensor, dtypes: tuple) -> Geometry:
     (g, b), a = m.shape, r.shape[1]
     return contract_geometry(g, b, a, m.stride(), r.stride(), m.element_size(),
                              m.data_ptr() % 16 == 0, r.data_ptr() % 16 == 0)
+
+
+# ---------------------------------------------------------------------------
+# launch geometry of segment_aggregate and level_segment_aggregate
+# ---------------------------------------------------------------------------
+
+SEG_THREAD, SEG_WARP, SEG_SORT, SEG_MERGE = 0, 1, 2, 3
+SEG_REGIMES = ("thread", "warp", "sort")
+SEG_WARPS = THREADS // 32
+SEG_THREAD_G = 96           # G of one thread's copy (one column): 256 copies fill 96 KiB
+SEG_THREAD_COLS = 256       # columns of a thread-regime tile: one per thread, at most
+SEG_WARP_CELLS = 1472       # G·V of one warp's copy: 8 copies fill 46 KiB
+SEG_MIN_ROWS = 2048         # rows per block, at least
+SEG_TARGET_BLOCKS = 1024    # blocks a long message (per column tile) is cut into
+SEG_MERGE_CELLS = 1 << 20   # block partials of one warp-regime message, at most
+SEG_PIECE_ELEMS = 1 << 15   # sort: values per piece of a segment
+SEG_MAX_MEMBERS = 40        # segagg::kMaxMembers
+
+
+@dataclasses.dataclass(frozen=True)
+class SegGeometry:
+    """One message's part of a segment launch (see csrc/segment_aggregate.cuh).
+
+    ``chunk`` is the rows per block, about (thread, warp: the blocks take
+    the rows grid-stride), or per piece of a segment (sort); ``blocks`` the
+    blocks per column tile; ``ws`` the float32 partials the merge grid
+    combines and ``merge`` its warps for this message (0 for none).  A sort
+    message's blocks and partials follow from its row order
+    (:func:`sort_launch`), so they are 0 here."""
+
+    regime: int
+    vt: int
+    tiles: int
+    chunk: int
+    blocks: int
+    smem: int
+    ws: int
+    merge: int
+
+    @property
+    def name(self) -> str:
+        return SEG_REGIMES[self.regime]
+
+
+@functools.lru_cache(maxsize=4096)
+def segment_geometry(n: int, g: int, v: int) -> SegGeometry:
+    """The regime and partition of one message of ``n`` rows, ``g``
+    segments and ``v`` columns: a function of those three numbers alone,
+    never of the card, the stream or the launch's other messages, so the
+    order of every float sum is fixed by the message itself."""
+    if min(n, g, v) < 1 or max(n, g * v) > _INT32_MAX:
+        raise ValueError(f"segment reduction of {n} rows into {g} x {v} is out of range")
+    if g <= SEG_THREAD_G:
+        regime, vt, smem = SEG_THREAD, min(v, SEG_THREAD_COLS), 4 * THREADS * g
+        cap = SEG_TARGET_BLOCKS
+    elif g * v <= SEG_WARP_CELLS:
+        regime, vt, smem = SEG_WARP, v, 4 * SEG_WARPS * g * v
+        cap = max(1, min(SEG_TARGET_BLOCKS, SEG_MERGE_CELLS // (g * v)))
+    else:  # more cells than a warp's copy holds: segment-major
+        return SegGeometry(SEG_SORT, v, 1, max(32, SEG_PIECE_ELEMS // v), 0, 0, 0, 0)
+    tiles = _cdiv(v, vt)
+    blocks = min(cap, _cdiv(n, SEG_MIN_ROWS))
+    chunk = _cdiv(n, blocks)
+    blocks = _cdiv(n, chunk)
+    cells = tiles * g * vt
+    return SegGeometry(regime, vt, tiles, chunk, blocks, smem,
+                       cells * blocks if blocks > 1 else 0, cells if blocks > 1 else 0)
+
+
+def sort_launch(geom: SegGeometry, v: int, n_items: int, n_slots: int,
+                n_splits: int) -> SegGeometry:
+    """A sort message's geometry once its row order is known: one warp per
+    work item, the pieces of split segments in the workspace, one merge warp
+    per (split segment, column)."""
+    return dataclasses.replace(geom, blocks=_cdiv(n_items, SEG_WARPS), ws=n_slots * v,
+                               merge=n_splits * v)
+
+
+class SegMember(ctypes.Structure):
+    """``struct segagg::Member``, field for field."""
+
+    _fields_ = [("index", _P), ("values", _P), ("out", _P), ("items", _P),
+                ("n", ctypes.c_longlong), ("chunk", ctypes.c_longlong),
+                ("ws", ctypes.c_longlong),
+                ("g", ctypes.c_int), ("v", ctypes.c_int), ("regime", ctypes.c_int),
+                ("vt", ctypes.c_int), ("tiles", ctypes.c_int), ("blocks", ctypes.c_int),
+                ("first_block", ctypes.c_int), ("aux", ctypes.c_int),
+                ("n_items", ctypes.c_int), ("n_splits", ctypes.c_int)]
+
+
+class SegTable(ctypes.Structure):
+    """``struct segagg::Table``: the kernel's by-value parameter.  Members
+    are grouped by regime; per regime (thread, warp, sort, then the merge
+    grid over all members), the index of its first member, its member
+    count, grid and dynamic shared memory."""
+
+    _fields_ = [("count", ctypes.c_int), ("pad", ctypes.c_int),
+                ("first", ctypes.c_int * 4), ("members", ctypes.c_int * 4),
+                ("grid", ctypes.c_int * 4), ("smem", ctypes.c_int * 4),
+                ("m", SegMember * SEG_MAX_MEMBERS)]
+
+
+@dataclasses.dataclass(frozen=True)
+class SegLaunch:
+    """One packed launch: the table, its blocks over all grids, the most
+    dynamic shared memory of one of them and its float32 workspace (0 for
+    none; ``tickets`` is :meth:`Kernel.scratch`'s, and 0)."""
+
+    table: SegTable
+    grid: int
+    smem: int
+    ws: int
+    tickets: int = 0
+
+
+def pack_members(members) -> list[SegLaunch]:
+    """Lay messages out in member tables, at most ``SEG_MAX_MEMBERS`` per
+    launch, in order.  Each member is ``(geom, index_ptr, values_ptr,
+    out_ptr, items_ptr, n, g, v, n_items, n_splits)`` with the geometry
+    of :func:`segment_geometry` (or :func:`sort_launch`).  In a table the
+    members are grouped by regime (stably: each regime runs as one grid); a
+    member gets its regime's next blocks, the next stretch of the workspace
+    and the merge grid's next warps, and nothing else of it depends on the
+    others."""
+    launches = []
+    for lo in range(0, len(members), SEG_MAX_MEMBERS):
+        group = sorted(members[lo: lo + SEG_MAX_MEMBERS], key=lambda m: m[0].regime)
+        table = SegTable(count=len(group))
+        blocks, smem, count = [0, 0, 0, 0], [0, 0, 0, 0], [0, 0, 0, len(group)]
+        ws = merge = 0
+        for j, (geom, index, values, out, items, n, g, v, n_items, n_splits) in enumerate(group):
+            r = geom.regime
+            table.m[j] = SegMember(
+                index=index, values=values, out=out, items=items, n=n, chunk=geom.chunk, ws=ws,
+                g=g, v=v, regime=r, vt=geom.vt, tiles=geom.tiles, blocks=geom.blocks,
+                first_block=blocks[r], aux=merge, n_items=n_items, n_splits=n_splits)
+            blocks[r] += geom.blocks * geom.tiles
+            smem[r] = max(smem[r], geom.smem)
+            count[r] += 1
+            ws += geom.ws
+            merge += geom.merge
+        blocks[SEG_MERGE] = _cdiv(merge, SEG_WARPS)
+        if max(blocks) > _INT32_MAX or merge > _INT32_MAX:
+            raise ValueError(f"a segment launch of {max(blocks)} blocks exceeds the grid")
+        table.first[:] = [0, count[0], count[0] + count[1], 0]
+        table.members[:], table.grid[:], table.smem[:] = count, blocks, smem
+        launches.append(SegLaunch(table, sum(blocks), max(smem), ws))
+    return launches

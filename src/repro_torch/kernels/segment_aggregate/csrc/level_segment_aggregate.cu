@@ -1,52 +1,57 @@
 // level_segment_aggregate: every segment ⊕-reduction of one calibration
-// level in one launch.  The wrapper concatenates the messages' operands:
-// codes (ΣN_j,) int32 hold GLOBAL segment ids (each message's local ids
-// shifted by its running segment offset), values (ΣN_j, V_max) float32 are
-// column-padded with the ⊕-identity, out is (ΣG_j, V_max).  Codes outside
-// [0, ΣG_j), such as the -1 of a pad row, match nothing.  The messages' row
-// and segment ranges are disjoint, so one pass over the rows computes every
-// message at once; no tile table is needed (the TPU kernel had one only to
-// walk its sequential grid block-diagonally).
+// level in one launch.  It takes a table of member descriptors (struct
+// segagg::Member: codes, values and out pointers, N_j, G_j, V_j and the
+// member's own partition of the grid), as the TPU kernel's row_blocks /
+// seg_blocks table did.  Each member is partitioned from its own
+// (N_j, G_j, V_j) alone and reads and writes only its own tensors, so its
+// output has the same bits whatever else shares the launch; nothing is
+// concatenated or padded.  Up to segagg::kMaxMembers members per launch.
 //
 // Replaces the TPU kernel src/repro/kernels/segment_aggregate/kernel.py:125
-// (level_segment_aggregate, body _level_kernel).  Design and bound:
-// segment_aggregate.cuh, with N = ΣN_j, G = ΣG_j and V = V_max.
-// Plain C interface for ctypes; returns a cudaError_t.
+// (level_segment_aggregate, body _level_kernel).  Design, order of the sums
+// and bound: segment_aggregate.cuh.  Plain C interface for ctypes, as
+// segment_aggregate.cu; returns a cudaError_t.
 
 #include "segment_aggregate.cuh"
 
-template <int OP, bool SHARED>
+template <int OP, int R>
 __global__ void __launch_bounds__(segagg::kThreads)
-level_segment_aggregate_kernel(const int* __restrict__ codes, const float* __restrict__ values,
-                               float* __restrict__ out, long long n, int v, int g) {
-  segagg::aggregate_rows<OP, SHARED>(codes, values, out, n, v, g);
+level_segment_aggregate_kernel(const __grid_constant__ segagg::Table t, float* ws) {
+  segagg::aggregate_members<OP, R>(t, ws);
 }
 
-template <int OP>
-static cudaError_t run(const int* codes, const float* values, float* out,
-                       long long n, int v, int g, cudaStream_t stream) {
-  const segagg::LaunchShape ls = segagg::launch_shape(n, v, g);
-  if (ls.shared) {
-    level_segment_aggregate_kernel<OP, true>
-        <<<ls.blocks, segagg::kThreads, ls.smem, stream>>>(codes, values, out, n, v, g);
-  } else {
-    level_segment_aggregate_kernel<OP, false>
-        <<<ls.blocks, segagg::kThreads, 0, stream>>>(codes, values, out, n, v, g);
+template <int OP, int R>
+static cudaError_t launch(const segagg::Table& t, float* ws, cudaStream_t s) {
+  if constexpr (R == segagg::kThread) {  // copies of more than 48 KiB: opt in, once
+    static const cudaError_t opted = cudaFuncSetAttribute(
+        level_segment_aggregate_kernel<OP, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        segagg::kThreadSmemMax);
+    if (opted != cudaSuccess) return opted;
   }
-  return cudaGetLastError();
+  return segagg::launch_regime(level_segment_aggregate_kernel<OP, R>, t, R, ws, s);
 }
 
-extern "C" int level_segment_aggregate(const void* codes, const void* values, void* out,
-                                       long long n, int v, int g, int op, void* stream) {
-  if (n <= 0 || v <= 0 || g <= 0) return static_cast<int>(cudaSuccess);
-  const int* c = static_cast<const int*>(codes);
-  const float* x = static_cast<const float*>(values);
-  float* o = static_cast<float*>(out);
+// one grid per regime present, in regime order, then the merge grid
+template <int OP>
+static cudaError_t run(const segagg::Table& t, float* ws, cudaStream_t s) {
+  cudaError_t err = launch<OP, segagg::kThread>(t, ws, s);
+  if (err == cudaSuccess) err = launch<OP, segagg::kWarp>(t, ws, s);
+  if (err == cudaSuccess) err = launch<OP, segagg::kSort>(t, ws, s);
+  if (err == cudaSuccess) err = launch<OP, segagg::kMerge>(t, ws, s);
+  return err;
+}
+
+extern "C" int level_segment_aggregate(const void* table, int op, void* ws, void* stream) {
+  const segagg::Table& t = *static_cast<const segagg::Table*>(table);
+  if (!segagg::table_ok(t, ws)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float* w = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (op) {
-    case segagg::kSum: return static_cast<int>(run<segagg::kSum>(c, x, o, n, v, g, s));
-    case segagg::kMin: return static_cast<int>(run<segagg::kMin>(c, x, o, n, v, g, s));
-    case segagg::kMax: return static_cast<int>(run<segagg::kMax>(c, x, o, n, v, g, s));
+    case segagg::kSum: return static_cast<int>(run<segagg::kSum>(t, w, s));
+    case segagg::kMin: return static_cast<int>(run<segagg::kMin>(t, w, s));
+    case segagg::kMax: return static_cast<int>(run<segagg::kMax>(t, w, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -6,32 +6,71 @@
 //
 // The TPU kernels this replaces (src/repro/kernels/segment_aggregate/
 // kernel.py) build a one-hot (rows × groups) matrix and contract it on the
-// matrix unit, because the TPU has no scatter: O(N·G·V) work.  Hopper has
-// fast atomics, so here the reduction is one pass over the rows:
+// matrix unit, row tiles in row order into a resident output tile, so a
+// message's float sum there is a fixed function of its own rows.  Here the
+// reduction is one pass over the rows, with no float atomics, and keeps that
+// property.
 //
-// - A grid-stride loop gives each thread one value element at a time, so a
-//   warp reads 32 consecutive values (row-major) and its atomics go to the
-//   contiguous output cells of a few rows.
-// - When G·V floats fit comfortably in shared memory and the per-block merge
-//   stays small against the row count, each block accumulates into its own
-//   shared-memory copy of the output and merges it into global memory once;
-//   otherwise every row updates global memory directly (wide outputs spread
-//   the atomics over many addresses).
-// - sum uses float atomicAdd.  CUDA has no float atomicMin/atomicMax, so
-//   min/max use the ordered-integer trick: a non-negative float orders like
-//   its bit pattern as a signed int, a negative one inversely to its bit
-//   pattern as an unsigned int.  -0.0 is folded to +0.0 first.
-// - A value equal to the ⊕-identity (0, +inf or -inf) is skipped.  This is
-//   exact (x ⊕ identity = x, up to the sign of zero) and skips the row-bucket
-//   pad rows and the σ-masked rows, which would otherwise all hit segment 0.
-// - A code outside [0, G) matches nothing: the level kernel's pad rows carry
-//   code -1.
+// One launch reduces a table of messages ("members", struct Member, passed
+// by value): each has its own codes (N_j,) int32, values (N_j, V_j) float32
+// row-major and out (G_j, V_j) float32 pre-filled with the ⊕-identity, and
+// its own partition of the grid's blocks.  Every member's regime and
+// partition are chosen in Python (repro_torch/kernels/launch.py::
+// segment_geometry) from its (N_j, G_j, V_j) alone: never from the card, the
+// stream or the other members.  Each regime present runs as its own grid
+// (so each has the registers and shared memory it needs), then a merge grid
+// combines the block partials of the thread and warp regimes.
 //
-// Bound: memory.  Each call reads N·4 bytes of codes and N·V·4 bytes of
+// The contract for sum.  out[g, c] is the float32 sum of the member's rows
+// with code g in an order fixed by the member's (codes, values) alone, so
+// its bits are the same across launches, streams and graph replays, on any
+// SM count, and whether the message goes alone or as member j of a level
+// launch with any other members.  The order, by regime (B is the member's
+// block count, a function of N, G and V):
+//
+// - thread (G ≤ 96).  Columns are cut into tiles of at most 256, each run
+//   by B blocks; every thread keeps a private copy of the G cells of one
+//   column in shared memory ([code][thread]).  One column: thread t of block
+//   b takes the 4-row quads b·256 + t + k·B·256, k = 0, 1, …, in order, a
+//   quad's rows in order; a code's 256 copies combine in a fixed order (lane
+//   l of a warp takes threads l, l + 32, …, l + 224, then a fixed
+//   xor-shuffle tree over the lanes).  Several columns: thread t owns column
+//   t % p (p the power of two ≥ the tile's columns) and takes row t / p of
+//   the 256 / p-row groups b + k·B in order; the copies of one column
+//   combine in thread order.
+// - warp (G > 96, G·V ≤ 1472, so V < 16).  B blocks, each with a private
+//   copy of the cells per warp in shared memory.  A batch is 32 / p rows × p
+//   columns (p the power of two ≥ V), lane l on row l / p and column l % p;
+//   warp w of block b takes the batches b·8 + w + k·B·8, k = 0, 1, …, in
+//   order.  Lane l owns the cells ≡ l (mod 32) of the warp's copy: each
+//   element of a batch is routed to the lane that owns its cell (ballots over
+//   the cell's low five bits), and that lane adds the elements routed to it
+//   in lane order.  The 8 copies combine in warp order.
+// - sort (every other message): segment-major, as the TPU kernel reduces.
+//   A stable order of the rows by code (a permutation, built once per codes
+//   tensor in Python and cached: ops.py::row_order) cuts each segment's rows
+//   into pieces of `chunk` rows; a warp reduces one piece, lane (r, c)
+//   taking rows r, r + R, … of its columns in row order (one column, or four
+//   when V is a multiple of 4; R = 32 / the lanes a row needs, a power of
+//   two), then a fixed xor-shuffle tree over the lanes of one column.
+//
+// A thread or warp member of more than one block writes each block's
+// partials to the workspace, and so does a sort member for each piece of a
+// segment of more than one piece.  The merge grid then combines them, one
+// warp per cell (thread, warp: over the blocks in block order) or per
+// (split segment, column) (sort: over the pieces in piece order): lane l
+// takes the partials l, l + 32, … in order, then a fixed xor-shuffle tree.
+// Sums of integer-valued floats below 2^24 are exact in any order.  min and
+// max take the same paths (they are exact in any order).  A code outside
+// [0, G) matches nothing: the concatenated level operands of
+// level_segment_aggregate carry -1 on pad rows.  The workspace comes from
+// the caller, one per stream (launch.Kernel.scratch).
+//
+// Bound: memory.  Each member reads N·4 bytes of codes and N·V·4 bytes of
 // values and writes G·V·4 bytes, so on an H100 (3.35 TB/s) it takes at least
-// (N·(4 + 4V) + G·V·4) / 3.35e12 seconds.  Atomic sums land in an order that
-// changes from run to run, so float sums agree with a sequential sum only to
-// rounding; sums of integer-valued floats below 2^24 are exact.
+// (N·(4 + 4V) + G·V·4) / 3.35e12 seconds.  The sort regime reads the
+// permutation instead of the codes and gathers each row's values through it:
+// at V = 1 a 4-byte value can cost a 32-byte sector.
 
 #pragma once
 
@@ -40,10 +79,52 @@
 namespace segagg {
 
 enum Op { kSum = 0, kMin = 1, kMax = 2 };
+enum Regime { kThread = 0, kWarp = 1, kSort = 2, kMerge = 3 };
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
-constexpr size_t kSharedBytes = 48 * 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSmemMax = 46 * 1024;  // dynamic shared memory of one block
+constexpr int kThreadSmemMax = 96 * 1024;  // ... of a thread-regime block (opted in past 48 KiB)
+constexpr int kMaxMembers = 40;     // the member table stays under 4 KiB of kernel parameters
+constexpr int kQuads = 2;           // thread regime, one column: 4-row quads in flight per thread
+constexpr int kUnroll = 4;          // loads in flight per thread before they are ⊕-ed in order
+constexpr int kSortUnroll = 8;      // ... in the sort regime (loads through the permutation)
+constexpr int kItemFields = 5;      // sort work item: segment, begin, end, slot, split
+constexpr int kSplitFields = 3;     // sort split segment: first slot, pieces, segment
+constexpr unsigned kFull = 0xffffffffu;
+
+// field order of class SegMember in repro_torch/kernels/launch.py
+struct Member {
+  const int* index;      // codes (thread, warp) or the row order's permutation (sort)
+  const float* values;   // (n, v) row-major
+  float* out;            // (g, v) row-major, filled with the ⊕-identity
+  const int* items;      // sort: n_items work items, then a (first slot, pieces, segment)
+                         // triple per split segment
+  long long n;           // rows
+  long long chunk;       // rows per block, about (thread, warp) or per piece (sort)
+  long long ws;          // offset of the member's partials in the workspace, in floats
+  int g, v;
+  int regime;
+  int vt, tiles;         // column tile (thread; warp and sort: v and 1)
+  int blocks;            // blocks per tile (thread, warp) or blocks of 8 items (sort)
+  int first_block;       // the member's first block in its regime's grid
+  int aux;               // its first warp in the merge grid
+  int n_items;           // sort: work items
+  int n_splits;          // sort: segments of more than one piece
+};
+
+// Members are grouped by regime; per regime (and for the merge grid, whose
+// members are all of them) the index of its first member, its member count,
+// grid and dynamic shared memory.
+struct Table {
+  int count;
+  int pad;
+  int first[4];
+  int members[4];
+  int grid[4];
+  int smem[4];
+  Member m[kMaxMembers];
+};
 
 template <int OP>
 __device__ __forceinline__ float identity() {
@@ -53,94 +134,432 @@ __device__ __forceinline__ float identity() {
 }
 
 template <int OP>
-__device__ __forceinline__ void combine(float* addr, float x) {
-  if (OP == kSum) {
-    atomicAdd(addr, x);
-    return;
-  }
-  if (x == 0.0f) x = 0.0f;  // fold -0.0 into +0.0 for the integer orderings
-  if (OP == kMin) {
-    if (x >= 0.0f) {
-      atomicMin(reinterpret_cast<int*>(addr), __float_as_int(x));
+__device__ __forceinline__ float combine(float a, float x) {
+  if (OP == kSum) return a + x;
+  if (OP == kMin) return x < a ? x : a;
+  return x > a ? x : a;
+}
+
+// ⊕ of every lane's x by a fixed xor tree over lane bits [lo, 32): every
+// lane of one class mod lo ends with the same bits (a + b == b + a).
+template <int OP>
+__device__ __forceinline__ float xor_tree(float x, int lo) {
+  for (int off = lo; off < 32; off <<= 1) x = combine<OP>(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// thread and warp: a block's partial per cell; the merge grid combines them
+// ---------------------------------------------------------------------------
+
+// out cell of tile-local cell `cell` (row-major over g × vt), or -1 for a
+// column past v in the last tile (warp and sort: one tile of all columns).
+__device__ __forceinline__ long long out_cell(const Member& m, int tile, int cell) {
+  const int c = tile * m.vt + cell % m.vt;
+  if (c >= m.v) return -1;
+  return static_cast<long long>(cell / m.vt) * m.v + c;
+}
+
+// Warp-regime block `b` has its partial of cell `cell` at part[cell].  One
+// block: write out.  Else: the workspace, cell-major ([cell][block]), for
+// the merge grid.
+__device__ __forceinline__ void finish_block(const Member& m, int b, int cells, float* ws,
+                                             const float* part) {
+  for (int cell = threadIdx.x; cell < cells; cell += kThreads) {
+    if (m.blocks == 1) {
+      m.out[cell] = part[cell];
     } else {
-      atomicMax(reinterpret_cast<unsigned int*>(addr), __float_as_uint(x));
+      ws[m.ws + static_cast<long long>(cell) * m.blocks + b] = part[cell];
+    }
+  }
+}
+
+// thread, several columns: thread t owns column t % p of the tile (p the
+// power of two ≥ its columns) and takes row t / p of the 256 / p-row groups
+// b + k·B, k = 0, 1, …, in order; then the copies of threads col, col + p, …
+// of one code combine in that order into acc[code · 256 + col].
+template <int OP>
+__device__ __forceinline__ void thread_columns(const Member& m, int b, float* acc, int vh, int c0) {
+  const int t = threadIdx.x, g = m.g, v = m.v;
+  int p = 1;
+  while (p < vh) p <<= 1;
+  const int rows = kThreads / p;
+  const int col = t % p, rsub = t / p;
+  const long long groups = (m.n + rows - 1) / rows;
+  if (col < vh) {
+    for (long long r0 = b; r0 < groups; r0 += static_cast<long long>(m.blocks) * kUnroll) {
+      int code[kUnroll];
+      float x[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long row = (r0 + u * static_cast<long long>(m.blocks)) * rows + rsub;
+        code[u] = -1;
+        x[u] = 0.0f;
+        if (row < m.n) {
+          code[u] = __ldg(m.index + row);
+          x[u] = __ldg(m.values + row * v + c0 + col);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (code[u] >= 0 && code[u] < g) {
+          float* a = acc + code[u] * kThreads + t;
+          *a = combine<OP>(*a, x[u]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int cell = t; cell < g * p; cell += kThreads) {
+    float* a = acc + (cell / p) * kThreads;
+    const int c = cell % p;
+    float s = a[c];
+    for (int k = 1; k < rows; ++k) s = combine<OP>(s, a[c + k * p]);
+    a[c] = s;
+  }
+}
+
+// thread: a private copy of the tile's G cells of its column per thread, in
+// shared memory as [code][thread] (no bank conflicts).
+template <int OP>
+__device__ void thread_block(const Member& m, int bt, float* ws) {
+  extern __shared__ float acc[];
+  const int tile = bt / m.blocks, b = bt % m.blocks;
+  const int g = m.g, v = m.v, vt = m.vt;
+  const int c0 = tile * vt;
+  const int vh = v - c0 < vt ? v - c0 : vt;   // columns of this tile
+  const int t = threadIdx.x;
+  for (int k = 0; k < g; ++k) acc[k * kThreads + t] = identity<OP>();
+  if (vh == 1) {
+    // one column: thread t of block b takes the 4-row quads b·256 + t + k·B·256
+    // in order, a quad's rows in order (one 16-byte load each of codes and
+    // values where the addresses allow: the order is the same either way)
+    const long long stride = static_cast<long long>(m.blocks) * kThreads;
+    const bool vec = v == 1 && ((reinterpret_cast<unsigned long long>(m.index) |
+                                 reinterpret_cast<unsigned long long>(m.values)) & 15) == 0;
+    const long long quads = (m.n + 3) / 4;
+    for (long long q = static_cast<long long>(b) * kThreads + t; q < quads; q += stride * kQuads) {
+      int code[kQuads][4];
+      float x[kQuads][4];
+#pragma unroll
+      for (int u = 0; u < kQuads; ++u) {
+        const long long row = 4 * (q + u * stride);
+        if (vec && row + 3 < m.n) {
+          const int4 cq = __ldg(reinterpret_cast<const int4*>(m.index + row));
+          const float4 xq = __ldg(reinterpret_cast<const float4*>(m.values + row));
+          code[u][0] = cq.x, code[u][1] = cq.y, code[u][2] = cq.z, code[u][3] = cq.w;
+          x[u][0] = xq.x, x[u][1] = xq.y, x[u][2] = xq.z, x[u][3] = xq.w;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const bool in = row + i < m.n;
+            code[u][i] = in ? __ldg(m.index + row + i) : -1;
+            x[u][i] = in ? __ldg(m.values + (row + i) * v + c0) : 0.0f;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kQuads; ++u) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (code[u][i] >= 0 && code[u][i] < g) {
+            float* a = acc + code[u][i] * kThreads + t;
+            *a = combine<OP>(*a, x[u][i]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // a code's 256 copies: lane l takes threads l, l + 32, … in order, then
+    // a fixed xor tree; lane 0 leaves the block's partial in acc[code · 256]
+    const int warp = t >> 5, lane = t & 31;
+    for (int k = warp; k < g; k += kWarps) {
+      float s = identity<OP>();
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s = combine<OP>(s, acc[k * kThreads + lane + 32 * w]);
+      s = xor_tree<OP>(s, 1);
+      __syncwarp();
+      if (lane == 0) acc[k * kThreads] = s;
     }
   } else {
-    if (x >= 0.0f) {
-      atomicMax(reinterpret_cast<int*>(addr), __float_as_int(x));
+    thread_columns<OP>(m, b, acc, vh, c0);
+  }
+  __syncthreads();
+  // the block's partial of cell (code, c) is at acc[code · 256 + c]; the
+  // tile's cells are row-major over g × vt
+  float* w = m.blocks == 1 ? nullptr : ws + m.ws + static_cast<long long>(tile) * g * vt * m.blocks;
+  for (int cell = t; cell < g * vt; cell += kThreads) {
+    const int code = cell / vt, c = cell % vt;
+    if (c >= vh) continue;
+    const float s = acc[code * kThreads + c];
+    if (w == nullptr) {
+      m.out[static_cast<long long>(code) * v + c0 + c] = s;
     } else {
-      atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(x));
+      w[static_cast<long long>(cell) * m.blocks + b] = s;
     }
   }
 }
 
-// One pass over rows [0, n); out holds g·v floats pre-filled with the
-// identity by the caller.  SHARED: accumulate in dynamic shared memory.
-template <int OP, bool SHARED>
-__device__ __forceinline__ void aggregate_rows(const int* __restrict__ codes,
-                                               const float* __restrict__ values,
-                                               float* __restrict__ out,
-                                               long long n, int v, int g) {
-  extern __shared__ float acc[];
-  const float ident = identity<OP>();
+// warp: a private copy of the G·V cells per warp.  Lane l owns the cells
+// ≡ l (mod 32) of the copy (so the lanes never share a cell or a bank):
+// each element of a batch is routed to the lane that owns its cell, and a
+// lane adds the elements routed to it in lane order.
+template <int OP>
+__device__ void warp_block(const Member& m, int b, float* ws) {
+  extern __shared__ float copies[];
+  const int g = m.g, v = m.v;
   const int cells = g * v;
-  if (SHARED) {
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) acc[i] = ident;
-    __syncthreads();
-  }
-  float* dst = SHARED ? acc : out;
-  // one thread per value element (row, c): a warp reads 32 consecutive
-  // values and its atomics land on the few rows' contiguous output cells;
-  // (row, c) advance by the grid stride without a division per element
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long row_step = stride / v;
-  const int col_step = static_cast<int>(stride % v);
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  long long row = first / v;
-  int c = static_cast<int>(first % v);
-  for (long long e = first; e < n * v; e += stride) {
-    const int code = codes[row];
-    const float x = values[e];
-    if (code >= 0 && code < g && x != ident) {
-      combine<OP>(dst + static_cast<long long>(code) * v + c, x);
+  for (int i = threadIdx.x; i < kWarps * cells; i += kThreads) copies[i] = identity<OP>();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* mine = copies + warp * cells;
+  int p = 1;
+  while (p < v) p <<= 1;                       // V ≤ 1472 / 97 < 32
+  const int rows = 32 / p;                     // rows per batch
+  const int rsub = lane / p, col = lane % p;
+  const long long groups = (m.n + rows - 1) / rows;
+  const long long tw = static_cast<long long>(m.blocks) * kWarps;
+  // every lane runs the same number of steps: the warp's batches
+  for (long long r0 = static_cast<long long>(b) * kWarps + warp; r0 < groups; r0 += tw * kUnroll) {
+    int key[kUnroll];
+    float x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long row = (r0 + u * tw) * rows + rsub;
+      key[u] = -1;
+      x[u] = identity<OP>();
+      if (row < m.n && col < v) {
+        const int code = __ldg(m.index + row);
+        x[u] = __ldg(m.values + row * v + col);
+        if (code >= 0 && code < g) key[u] = code * v + col;
+      }
     }
-    row += row_step;
-    c += col_step;
-    if (c >= v) {
-      c -= v;
-      ++row;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      // the lanes whose element this lane owns: their key ≡ lane (mod 32)
+      unsigned mask = __ballot_sync(kFull, key[u] >= 0);
+#pragma unroll
+      for (int bit = 0; bit < 5; ++bit) {
+        const unsigned ones = __ballot_sync(kFull, key[u] >> bit & 1);
+        mask &= lane >> bit & 1 ? ones : ~ones;
+      }
+      const int turns = __reduce_max_sync(kFull, __popc(mask));
+      for (int k = 0; k < turns; ++k) {
+        const bool has = mask != 0;
+        const int src = has ? __ffs(mask) - 1 : lane;
+        mask &= mask - 1;
+        const int kk = __shfl_sync(kFull, key[u], src);
+        const float xx = __shfl_sync(kFull, x[u], src);
+        if (has) mine[kk] = combine<OP>(mine[kk], xx);
+      }
     }
   }
-  if (SHARED) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-      const float x = acc[i];
-      if (x != ident) combine<OP>(out + i, x);
+  __syncthreads();
+  for (int cell = threadIdx.x; cell < cells; cell += kThreads) {
+    float s = copies[cell];
+    for (int w = 1; w < kWarps; ++w) s = combine<OP>(s, copies[w * cells + cell]);
+    copies[cell] = s;
+  }
+  __syncthreads();
+  finish_block(m, b, cells, ws, copies);
+}
+
+// ⊕ of n partials p[0], p[stride], … in a fixed order: lane l takes
+// partials l, l + 32, … in order, then a fixed xor tree.
+template <int OP>
+__device__ __forceinline__ float merge_parts(const float* p, long long stride, int n) {
+  const int lane = threadIdx.x & 31;
+  float acc = identity<OP>();
+  int k = lane;
+  for (; k + 32 * (kUnroll - 1) < n; k += 32 * kUnroll) {
+    float x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) x[u] = p[(k + 32 * u) * stride];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc = combine<OP>(acc, x[u]);
+  }
+  for (; k < n; k += 32) acc = combine<OP>(acc, p[k * stride]);
+  return xor_tree<OP>(acc, 1);
+}
+
+// merge: warp w of a member.  Thread and warp members of more than one
+// block: one warp per (tile, cell), over the block partials in block order.
+// Sort members: one warp per (split segment, column), over the segment's
+// pieces in piece order.
+template <int OP>
+__device__ void merge_warp(const Member& m, long long w, const float* ws) {
+  const int lane = threadIdx.x & 31;
+  if (m.regime == kSort) {
+    const int split = static_cast<int>(w / m.v), c = static_cast<int>(w % m.v);
+    const int* sp = m.items + static_cast<long long>(m.n_items) * kItemFields +
+                    static_cast<long long>(split) * kSplitFields;
+    const float s = merge_parts<OP>(ws + m.ws + static_cast<long long>(sp[0]) * m.v + c, m.v,
+                                    sp[1]);
+    if (lane == 0) m.out[static_cast<long long>(sp[2]) * m.v + c] = s;
+    return;
+  }
+  const int cells = m.g * m.vt;
+  const int tile = static_cast<int>(w / cells), cell = static_cast<int>(w % cells);
+  const float s = merge_parts<OP>(
+      ws + m.ws + (static_cast<long long>(tile) * cells + cell) * m.blocks, 1, m.blocks);
+  const long long o = out_cell(m, tile, cell);
+  if (lane == 0 && o >= 0) m.out[o] = s;
+}
+
+// ---------------------------------------------------------------------------
+// sort: one warp per piece of a segment's rows, in row order
+// ---------------------------------------------------------------------------
+
+// ⊕ over rows [begin, end) of the permutation of W columns per lane from
+// column cb + W · (lane % vp) on (W = 4 when V is a multiple of 4, read as
+// one 16-byte load where the address allows: the order is the same either
+// way); lanes of one column class end with the same bits.
+template <int OP, int W>
+__device__ __forceinline__ void piece_sum(const Member& m, int begin, int end, int cb, int vp,
+                                          int lane, float (&acc)[W]) {
+  const int c = cb + W * (lane % vp);
+  const int step = 32 / vp;
+#pragma unroll
+  for (int w = 0; w < W; ++w) acc[w] = identity<OP>();
+  if (c < m.v) {
+    const bool vec = W == 4 && (reinterpret_cast<unsigned long long>(m.values) & 15) == 0;
+    for (int r = begin + lane / vp; r < end; r += step * kSortUnroll) {
+      float x[kSortUnroll][W];
+#pragma unroll
+      for (int u = 0; u < kSortUnroll; ++u) {
+        const int ru = r + step * u;
+#pragma unroll
+        for (int w = 0; w < W; ++w) x[u][w] = identity<OP>();
+        if (ru < end) {
+          const float* src = m.values + static_cast<long long>(__ldg(m.index + ru)) * m.v + c;
+          if (W == 4 && vec) {
+            const float4 q = __ldg(reinterpret_cast<const float4*>(src));
+            x[u][0] = q.x;
+            x[u][W > 1 ? 1 : 0] = q.y;
+            x[u][W > 2 ? 2 : 0] = q.z;
+            x[u][W > 3 ? 3 : 0] = q.w;
+          } else {
+#pragma unroll
+            for (int w = 0; w < W; ++w) x[u][w] = __ldg(src + w);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSortUnroll; ++u) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) acc[w] = combine<OP>(acc[w], x[u][w]);
+      }
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) acc[w] = xor_tree<OP>(acc[w], vp);
+}
+
+template <int OP, int W>
+__device__ void sort_item(const Member& m, const int* item, float* ws) {
+  const int lane = threadIdx.x & 31;
+  const int seg = item[0], begin = item[1], end = item[2], slot = item[3];
+  const int lanes = (m.v + W - 1) / W;   // lanes a row's columns need
+  int vp = 1;
+  while (vp < lanes && vp < 32) vp <<= 1;
+  // a segment of one piece: out; else the piece's slot, for the merge grid
+  float* dst = slot < 0 ? m.out + static_cast<long long>(seg) * m.v
+                        : ws + m.ws + static_cast<long long>(slot) * m.v;
+  for (int cb = 0; cb < m.v; cb += 32 * W) {
+    float s[W];
+    piece_sum<OP, W>(m, begin, end, cb, vp, lane, s);
+    const int c = cb + W * (lane % vp);
+    if (lane < vp && c < m.v) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) dst[c + w] = s[w];
     }
   }
 }
 
-struct LaunchShape {
-  int blocks;
-  bool shared;
-  size_t smem;
-};
-
-inline LaunchShape launch_shape(long long n, int v, int g) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+template <int OP>
+__device__ void sort_block(const Member& m, int b, float* ws) {
+  const int it = b * kWarps + (threadIdx.x >> 5);
+  if (it >= m.n_items) return;
+  const int* item = m.items + static_cast<long long>(it) * kItemFields;
+  if (m.v % 4 == 0) {
+    sort_item<OP, 4>(m, item, ws);
+  } else {
+    sort_item<OP, 1>(m, item, ws);
   }
-  long long want = (n * v + kThreads - 1) / kThreads;
-  long long cap = static_cast<long long>(sms) * kBlocksPerSm;
-  int blocks = static_cast<int>(want < cap ? want : cap);
-  if (blocks < 1) blocks = 1;
-  const size_t smem = static_cast<size_t>(g) * v * sizeof(float);
-  // shared copies pay one merge of g·v cells per block: take them only
-  // while that merge stays under a quarter of the row pass
-  const bool shared = smem <= kSharedBytes &&
-                      static_cast<long long>(blocks) * g * 4 <= n;
-  return LaunchShape{blocks, shared, shared ? smem : 0};
+}
+
+// ---------------------------------------------------------------------------
+// the kernel body: find the block's member, run its regime
+// ---------------------------------------------------------------------------
+
+// a member's warps in the merge grid
+__host__ __device__ inline long long merge_warps(const Member& m) {
+  if (m.regime == kSort) return static_cast<long long>(m.n_splits) * m.v;
+  return m.blocks > 1 ? static_cast<long long>(m.tiles) * m.g * m.vt : 0;
+}
+
+template <int OP, int R>
+__device__ __forceinline__ void aggregate_members(const Table& t, float* ws) {
+  int j = t.first[R];
+  const int last = j + t.members[R] - 1;
+  if constexpr (R == kMerge) {  // the merge grid counts warps: a member's first is in `aux`
+    const long long w = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+    while (j < last && w >= t.m[j + 1].aux) ++j;
+    const Member& m = t.m[j];
+    if (w - m.aux < merge_warps(m)) merge_warp<OP>(m, w - m.aux, ws);
+  } else {
+    while (j < last && static_cast<int>(blockIdx.x) >= t.m[j + 1].first_block) ++j;
+    const Member& m = t.m[j];
+    const int b = static_cast<int>(blockIdx.x) - m.first_block;
+    if constexpr (R == kThread) {
+      thread_block<OP>(m, b, ws);
+    } else if constexpr (R == kWarp) {
+      warp_block<OP>(m, b, ws);
+    } else {
+      sort_block<OP>(m, b, ws);
+    }
+  }
+}
+
+// Host side: one grid of `kernel`, if the table has work for it.
+template <typename Kernel>
+inline cudaError_t launch_regime(Kernel kernel, const Table& t, int r, float* ws,
+                                 cudaStream_t s) {
+  if (t.members[r] == 0 || t.grid[r] == 0) return cudaSuccess;
+  kernel<<<t.grid[r], kThreads, t.smem[r], s>>>(t, ws);
+  return cudaGetLastError();
+}
+
+// Host side: the checks a C entry point makes before it launches.
+inline bool table_ok(const Table& t, const void* ws) {
+  if (t.count < 1 || t.count > kMaxMembers) return false;
+  int next = 0;
+  long long merge = 0;
+  for (int r = kThread; r <= kSort; ++r) {
+    if (t.first[r] != next || t.members[r] < 0) return false;
+    next += t.members[r];
+    if (t.members[r] == 0) continue;
+    if (t.grid[r] < 1 || t.smem[r] < 0) return false;
+    if (t.smem[r] > (r == kThread ? kThreadSmemMax : kSmemMax)) return false;
+    int block = 0;
+    for (int j = t.first[r]; j < next; ++j) {
+      const Member& m = t.m[j];
+      if (m.regime != r || m.n <= 0 || m.g <= 0 || m.v <= 0 || m.blocks <= 0) return false;
+      if (r == kThread && m.g * kThreads * 4 > t.smem[r]) return false;
+      if (r == kWarp && (m.v > 32 || m.vt != m.v || m.g * m.v * kWarps * 4 > t.smem[r])) {
+        return false;
+      }
+      if (r == kSort && (m.items == nullptr || m.n_items > m.blocks * kWarps)) return false;
+      if (m.aux != merge || m.first_block != block) return false;
+      merge += merge_warps(m);
+      block += m.blocks * m.tiles;
+    }
+    if (block != t.grid[r]) return false;
+  }
+  if (merge > 0 && ws == nullptr) return false;
+  if (t.first[kMerge] != 0 || t.members[kMerge] != t.count) return false;
+  if (t.grid[kMerge] != (merge + kWarps - 1) / kWarps || t.smem[kMerge] != 0) return false;
+  return next == t.count;
 }
 
 }  // namespace segagg

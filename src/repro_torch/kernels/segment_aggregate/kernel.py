@@ -11,7 +11,9 @@ kernels of ``src/repro/kernels/segment_aggregate/kernel.py``:
 
 Both are built by :mod:`repro_torch.kernels.build` (``nvcc`` for
 ``sm_90a``, plain C interface, ``ctypes``) and bound by
-:class:`repro_torch.kernels.launch.Kernel` on first use.  Nothing here runs
+:class:`repro_torch.kernels.launch.Kernel` on first use.  Both take a table
+of messages (``launch.SegTable``), each partitioned by
+``launch.segment_geometry`` from its own shape alone.  Nothing here runs
 at import time: the CPU tests import this module on a machine with neither
 ``nvcc`` nor a card.
 """
@@ -22,24 +24,48 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import launch as _launch
 from repro_torch.kernels.launch import Kernel
 
 OP_CODES = {"sum": 0, "min": 1, "max": 2}
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+_P = ctypes.c_void_p
+# (table, op, workspace); the stream comes last
+_ARGTYPES = [_P, ctypes.c_int, _P]
 KERNELS = {name: Kernel(name, _ARGTYPES)
            for name in ("segment_aggregate", "level_segment_aggregate")}
 
 
-def launch(name: str, codes: torch.Tensor, values: torch.Tensor, out: torch.Tensor,
-           op: str) -> None:
-    """Launch kernel ``name`` on the current stream of ``codes``' device.
+def launch(name: str, members: list, op: str) -> int:
+    """Launch kernel ``name`` over ``members`` on the current stream of their
+    device; return the launches made (one per ``launch.SEG_MAX_MEMBERS``
+    members).
 
-    ``codes`` (N,) int32, ``values`` (N, V) float32 and ``out`` (G, V)
-    float32 are contiguous CUDA tensors; ``out`` holds the ⊕-identity.  The
-    caller checks all of that.  Raises if the launch is refused.
+    Each member is ``(codes, values, out, geom, order)``: contiguous CUDA
+    tensors of one device, ``codes`` (N,) int32, ``values`` (N, V) float32,
+    ``out`` (G, V) float32 holding the ⊕-identity, ``geom`` its
+    ``launch.segment_geometry(N, G, V)`` and ``order`` its row order
+    (``ops.row_order``) when that geometry is the sort regime, else None.
+    The caller checks all of that.  Raises if a launch is refused.
     """
-    n, v = values.shape
-    KERNELS[name](codes.device, codes.data_ptr(), values.data_ptr(), out.data_ptr(),
-                  n, v, out.shape[0], OP_CODES[op])
+    packed = []
+    for codes, values, out, geom, order in members:
+        (n, v), g = values.shape, out.shape[0]
+        if geom.regime == _launch.SEG_SORT:
+            geom = _launch.sort_launch(geom, v, order.n_items, order.n_slots, order.n_splits)
+            if not geom.blocks:  # no row has a code in [0, G): out keeps the identity
+                continue
+            packed.append((geom, order.perm.data_ptr(), values.data_ptr(), out.data_ptr(),
+                           order.table.data_ptr(), n, g, v, order.n_items, order.n_splits))
+        else:
+            packed.append((geom, codes.data_ptr(), values.data_ptr(), out.data_ptr(), None,
+                           n, g, v, 0, 0))
+    if not packed:
+        return 0
+    device = members[0][0].device
+    kern = KERNELS[name]
+    launches = _launch.pack_members(packed)
+    for one in launches:
+        ws = kern.scratch(device, one)[0] if one.ws else None
+        kern(device, ctypes.addressof(one.table), OP_CODES[op], ws)
+    return len(launches)

@@ -6,6 +6,16 @@ given CUDA tensors it checks them, allocates the output filled with the
 counts the launch in :data:`LAUNCHES`.  There is no fallback: a CUDA input
 the kernel does not take, a failed build or a refused launch raises.
 
+Float sums repeat bit for bit: a message's sum is taken in an order fixed
+by its own (codes, values) — whichever wrapper, launch, stream or card
+computes it (``csrc/segment_aggregate.cuh``).  A message with many segments
+is reduced segment-major over a stable row order (:func:`row_order`), built
+with ``torch.sort`` once per codes tensor and kept while that tensor lives
+(:func:`cached_row_order`): the plan layer's codes are cached per relation
+version and output attributes (``Catalog.dev_flat_codes``), so each order is
+built once per version, and once per shard row block (a view of the cached
+codes) on a sharded plan.
+
 Sharded composition: both :func:`aggregate_op` and :func:`level_aggregate`
 are *shard-local* — under ``repro_torch.core.distributed.shard_map`` they
 see the shard's row block (codes and value slab sliced on the leading
@@ -18,14 +28,21 @@ the shard's device, so a sharded plan launches once per shard.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import weakref
+
 import torch
-import torch.nn.functional as F
+
+from repro_torch.kernels import launch as _launch
 
 from . import kernel
 from .ref import IDENTITY, level_segment_aggregate_ref, segment_aggregate_ref
 
 # kernel launches since the last reset_launches(), by kernel name
 LAUNCHES = {"segment_aggregate": 0, "level_segment_aggregate": 0}
+# row orders built (row_order calls made by cached_row_order) since import
+ORDER_BUILDS = {"orders": 0}
 
 _INT32_MAX = 2**31 - 1
 
@@ -55,6 +72,106 @@ def _checked_out(codes: torch.Tensor, values: torch.Tensor, num_segments: int,
                       dtype=torch.float32, device=codes.device)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class RowOrder:
+    """A stable order of a message's rows by code and its sort-regime work.
+
+    ``perm`` (N,) int32 lists the rows by code, rows of one code in row
+    order; segment s holds ``perm[offsets[s]:offsets[s + 1]]`` (codes
+    outside [0, G) fall before ``offsets[0]`` or after ``offsets[G]``).
+    Each segment's rows are cut into pieces of ``piece`` rows, one work item
+    each: ``table`` (int32) holds ``n_items`` items (segment, begin, end,
+    slot, split) and then, for each of the ``n_splits`` segments of more
+    than one piece, (first slot, pieces, segment); a split segment's pieces
+    go to ``n_slots`` workspace slots in piece order (slot and split are -1
+    for a segment of one piece)."""
+
+    perm: torch.Tensor
+    offsets: torch.Tensor
+    table: torch.Tensor
+    n_items: int
+    n_splits: int
+    n_slots: int
+    piece: int
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.perm, self.offsets, self.table))
+
+
+def row_order(codes: torch.Tensor, num_segments: int, piece: int) -> RowOrder:
+    """Build the :class:`RowOrder` of ``codes`` (N,) int32 on its device:
+    one stable ``torch.sort`` and a few scans (one host sync for the item
+    count)."""
+    dev, g = codes.device, num_segments
+    sorted_codes, perm = torch.sort(codes, stable=True)
+    offsets = torch.searchsorted(sorted_codes, torch.arange(g + 1, dtype=codes.dtype, device=dev))
+    counts = offsets[1:] - offsets[:-1]
+    pieces = (counts + piece - 1) // piece
+    multi = pieces > 1
+    split_pieces = pieces[multi]
+    n_items, n_splits, n_slots = (int(x) for x in torch.stack(
+        [pieces.sum(), multi.sum(), split_pieces.sum()]).tolist())
+    seg = torch.repeat_interleave(torch.arange(g, device=dev), pieces, output_size=n_items)
+    p = torch.arange(n_items, device=dev) - (torch.cumsum(pieces, 0) - pieces)[seg]
+    begin = offsets[seg] + p * piece
+    end = torch.minimum(begin + piece, offsets[seg + 1])
+    split_first = torch.cumsum(split_pieces, 0) - split_pieces
+    split = torch.where(multi, torch.cumsum(multi.long(), 0) - 1, -1)[seg]
+    slot = torch.full_like(split, -1)
+    if n_splits:
+        slot = torch.where(split >= 0, split_first[split.clamp_min(0)] + p, -1)
+    items = torch.stack([seg, begin.long(), end.long(), slot, split], 1)
+    splits = torch.stack([split_first, split_pieces, torch.nonzero(multi)[:, 0]], 1)
+    table = torch.cat([items.flatten(), splits.flatten()]).to(torch.int32)
+    return RowOrder(perm=perm.to(torch.int32), offsets=offsets.to(torch.int32), table=table,
+                    n_items=n_items, n_splits=n_splits, n_slots=n_slots, piece=piece)
+
+
+# id(codes' base tensor) -> (weak reference to it, {view key: RowOrder})
+_ORDERS: dict[int, tuple[weakref.ref, dict]] = {}
+
+
+def _forget(key: int, ref: weakref.ref) -> None:
+    entry = _ORDERS.get(key)
+    if entry is not None and entry[0] is ref:
+        del _ORDERS[key]
+
+
+def cached_row_order(codes: torch.Tensor, num_segments: int, piece: int) -> RowOrder:
+    """:func:`row_order`, kept while ``codes`` (or the tensor it is a view
+    of) lives and is not written to: keyed by that tensor's identity, the
+    view's offset and shape and the tensor's version counter.  A new
+    relation version comes with a new codes tensor, so its order is built
+    anew."""
+    base = codes if codes._base is None else codes._base
+    entry = _ORDERS.get(id(base))
+    if entry is None or entry[0]() is not base:
+        entry = (weakref.ref(base, functools.partial(_forget, id(base))), {})
+        _ORDERS[id(base)] = entry
+    orders = entry[1]
+    key = (codes.storage_offset(), tuple(codes.shape), num_segments, piece)
+    order, version = orders.get(key, (None, None))
+    if order is None or version != codes._version:
+        order = row_order(codes, num_segments, piece)
+        ORDER_BUILDS["orders"] += 1
+        orders[key] = order, codes._version
+    return order
+
+
+def _launch_members(name: str, items: list, op: str) -> None:
+    """Launch kernel ``name`` over checked ``(codes, values, out)`` CUDA
+    messages and count its launches."""
+    members = []
+    for codes, values, out in items:
+        (n, v), g = values.shape, out.shape[0]
+        geom = _launch.segment_geometry(n, g, v)
+        order = (cached_row_order(codes, g, geom.chunk)
+                 if geom.regime == _launch.SEG_SORT else None)
+        members.append((codes, values, out, geom, order))
+    LAUNCHES[name] += kernel.launch(name, members, op)
+
+
 def aggregate_op(codes: torch.Tensor, values: torch.Tensor, num_segments: int,
                  op: str = "sum") -> torch.Tensor:
     """``out[g, v] = ⊕_{n: codes[n] = g} values[n, v]``, ⊕ ∈ {sum, min, max}.
@@ -70,56 +187,49 @@ def aggregate_op(codes: torch.Tensor, values: torch.Tensor, num_segments: int,
     else:
         out = _checked_out(codes, values, num_segments, op)
         if codes.shape[0]:
-            kernel.launch("segment_aggregate", codes, values, out, op)
-            LAUNCHES["segment_aggregate"] += 1
+            _launch_members("segment_aggregate", [(codes, values, out)], op)
     return out[:, 0] if squeeze else out
 
 
 def level_segment_aggregate(codes: torch.Tensor, values: torch.Tensor, total_segments: int,
                             op: str = "sum") -> torch.Tensor:
-    """The level kernel on concatenated operands: ``codes`` (ΣN,) int32
-    global segment ids (-1 matches nothing), ``values`` (ΣN, V) float32,
-    out (total_segments, V)."""
+    """The level kernel on concatenated operands, as one message: ``codes``
+    (ΣN,) int32 global segment ids (-1 matches nothing), ``values`` (ΣN, V)
+    float32, out (total_segments, V)."""
     if codes.device.type == "cpu":
         return level_segment_aggregate_ref(codes, values, total_segments, op)
     out = _checked_out(codes, values, total_segments, op)
     if codes.shape[0]:
-        kernel.launch("level_segment_aggregate", codes, values, out, op)
-        LAUNCHES["level_segment_aggregate"] += 1
+        _launch_members("level_segment_aggregate", [(codes, values, out)], op)
     return out
 
 
 def level_aggregate(items, op: str = "sum") -> list[torch.Tensor]:
     """Several independent ``(codes, values, num_segments)`` segment
-    reductions in ONE ``level_segment_aggregate`` launch.
+    reductions in ONE ``level_segment_aggregate`` launch (one per
+    ``launch.SEG_MAX_MEMBERS`` messages).
 
-    Item j is one same-level message: ``codes`` (n_j,) local segment ids in
-    [0, g_j), ``values`` (n_j, v_j).  Local ids shift by the running segment
-    offset so the messages' outputs are disjoint; values are padded to the
-    common width with the ⊕-identity.  Returns the per-item (g_j, v_j) outputs.
-    On the CPU the plain version reduces each item on its own (no padding).
+    Item j is one same-level message: ``codes`` (n_j,) segment ids in
+    [0, g_j), ``values`` (n_j, v_j).  Each message is a member of the
+    launch's table with its own tensors and partition, so its output has
+    the same bits as ``aggregate_op`` gives it alone.  Returns the per-item
+    (g_j, v_j) outputs.  On the CPU the plain version reduces each item.
     """
     assert items, "level_aggregate of zero messages"
     if items[0][0].device.type == "cpu":
         return [segment_aggregate_ref(codes, values.to(torch.float32), g, op)
                 for codes, values, g in items]
-    if len(items) == 1:  # nothing to shift, pad or concatenate
-        codes, values, g = items[0]
-        return [level_segment_aggregate(codes.to(torch.int32).contiguous(),
-                                        values.to(torch.float32).contiguous(), g, op)]
-    ident = IDENTITY[op]
-    v_max = max(v.shape[1] for _, v, _ in items)
-    all_codes, all_vals, spans = [], [], []
-    seg_off = 0
+    outs, members = [], []
     for codes, values, g in items:
-        all_codes.append(codes.to(torch.int32) + seg_off)
-        if values.shape[1] < v_max:
-            values = F.pad(values, (0, v_max - values.shape[1]), value=ident)
-        all_vals.append(values.to(torch.float32))
-        spans.append((seg_off, g))
-        seg_off += g
-    out = level_segment_aggregate(torch.cat(all_codes), torch.cat(all_vals), seg_off, op)
-    return [out[off: off + g, : v.shape[1]] for (off, g), (_, v, _) in zip(spans, items)]
+        codes = codes.to(torch.int32).contiguous()
+        values = values.to(torch.float32).contiguous()
+        out = _checked_out(codes, values, g, op)
+        outs.append(out)
+        if codes.shape[0]:
+            members.append((codes, values, out))
+    if members:
+        _launch_members("level_segment_aggregate", members, op)
+    return outs
 
 
 def aggregate(codes: torch.Tensor, values: torch.Tensor, num_segments: int, op: str = "sum",

@@ -269,3 +269,56 @@ def test_calibrate_many_union_carry_matches_reference(cats, budget, monkeypatch)
         (jf, js), (tf, ts) = je.execute(jq), te.execute(tq)
         assert ts.messages_computed == js.messages_computed == 0
         assert_factors_match(jf, tf, exact=True)
+
+
+CHECK_RINGS = [("sum", ("Opp", "amount")), ("tropical_max", ("Camp", "budget")),
+               ("moments", ("Opp", "amount"))]
+
+
+@pytest.mark.parametrize("ring,measure", CHECK_RINGS, ids=[r for r, _ in CHECK_RINGS])
+def test_check_calibration_matches_reference(cats, ring, measure):
+    """§3.4.1's check: both packages' calibrated engines pass it, and both
+    fail it once the same cached message is perturbed (every cell x ↦ 2x + 1)."""
+    import dataclasses
+
+    import jax
+
+    jcat, tcat = cats
+    je = JEngine(j_jt(jcat), jcat, jsr.get(ring))
+    te = CJTEngine(jt_from_catalog(tcat), tcat, tsr.get(ring), device="cpu")
+    jq = _queries(JQuery.make, j_mask_in, jcat, ring, measure)[2]
+    tq = _queries(Query.make, mask_in, tcat, ring, measure)[2]
+    je.calibrate(jq)
+    te.calibrate(tq)
+    assert bool(je.check_calibration(jq)) is True
+    assert te.check_calibration(tq) is True
+    u, v = next(iter(te.jt.directed_edges()))
+    base = te.edge_sig(tq, u, v, te.place_predicates(tq))
+    assert base == je.edge_sig(jq, u, v, je.place_predicates(jq))
+    gamma = te.gamma_carry(tq, u, v)
+    sig = te.store.full_sig(base, gamma)
+    jf, tf = je.store._data[sig], te.store._data[sig]
+    je.store._data[sig] = dataclasses.replace(
+        jf, field=jax.tree_util.tree_map(lambda x: x * 2 + 1, jf.field))
+    te.store._data[sig] = dataclasses.replace(
+        tf, field=tsr.field_map(lambda x: x * 2 + 1, tf.field))
+    assert bool(je.check_calibration(jq)) is False
+    assert te.check_calibration(tq) is False
+
+
+def test_unpin_query_and_block_until_ready_match_reference(cats):
+    """``unpin_query(q, root=...)`` releases as many pins in the port as in
+    the reference (then none), and ``MessageStore.block_until_ready`` waits
+    on a calibrated store in both."""
+    jcat, tcat = cats
+    je = JEngine(j_jt(jcat), jcat, jsr.get("sum"))
+    te = CJTEngine(jt_from_catalog(tcat), tcat, tsr.get("sum"), device="cpu")
+    jq = _queries(JQuery.make, j_mask_in, jcat, "sum", ("Opp", "amount"))[3]
+    tq = _queries(Query.make, mask_in, tcat, "sum", ("Opp", "amount"))[3]
+    je.calibrate(jq, pin=True)
+    te.calibrate(tq, pin=True)
+    assert je.store.block_until_ready() is None and te.store.block_until_ready() is None
+    released = je.unpin_query(jq, root=je.choose_root(jq))
+    assert released > 0
+    assert te.unpin_query(tq, root=te.choose_root(tq)) == released
+    assert je.unpin_query(jq) == te.unpin_query(tq) == 0

@@ -9,8 +9,9 @@ it runs on a machine with a card and no JAX:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 
 Tolerances: min/max and sums of integer-valued floats must match exactly;
-the segment kernels' gamma-valued sums agree to rtol 1e-5 (they add in
-float32 with atomics, in an order that changes from run to run); float16
+the segment kernels' gamma-valued sums agree to rtol 1e-5 with the float64
+plain version (float32 sums, in an order fixed by each message) and give
+the same bits on every launch, stream and graph replay; float16
 and uniform float32 contractions to the reference file's rtol 5e-3 /
 atol 1e-3.  The contract kernels sum in a fixed order (split partials merge
 in block order), so two calls on the same inputs give the same bits.
@@ -583,33 +584,86 @@ def _sum_rtol(n: int) -> float:
 
 @pytest.mark.parametrize("kernel", ["segment_aggregate", "level_segment_aggregate"])
 def test_cuda_float_segment_sums_repeat(cuda, kernel):
-    """One float SUM launch at a contended shape (2^23 gamma-valued rows into
-    30 segments), run twice on the same inputs: prints whether the two
-    outputs are bit-equal and their largest relative difference, and holds
-    both to the float64 plain version within the float32 sum bound (the
-    kernels add with atomics, so the order of a sum may change)."""
-    n, g = 1 << 23, 30
+    """A float SUM at a contended shape (2^23 gamma-valued rows into 30
+    segments) and at a segment-major one (2^22 rows into 50,000 segments)
+    gives the same bits over 5 launches, on a second stream and in a CUDA
+    graph replay, and stays within the float32 sum bound of the float64
+    plain version."""
     gen = torch.Generator(device=cuda).manual_seed(7)
-    codes = torch.randint(0, g, (n,), device=cuda, dtype=torch.int32, generator=gen)
-    vals = torch.empty((n, 1), device=cuda).exponential_(generator=gen).mul_(100.0)
+    for n, g in ((1 << 23, 30), (1 << 22, 50_000)):
+        codes = torch.randint(0, g, (n,), device=cuda, dtype=torch.int32, generator=gen)
+        vals = torch.empty((n, 1), device=cuda).exponential_(generator=gen).mul_(100.0)
 
-    def run():
-        if kernel == "segment_aggregate":
-            return ops.aggregate_op(codes, vals, g, "sum")
-        return ops.level_aggregate([(codes, vals, g)], op="sum")[0]
+        def run():
+            if kernel == "segment_aggregate":
+                return ops.aggregate_op(codes, vals, g, "sum")
+            return ops.level_aggregate([(codes, vals, g)], op="sum")[0]
 
-    before = ops.LAUNCHES[kernel]
-    a, b = run(), run()
+        before = ops.LAUNCHES[kernel]
+        outs = [run() for _ in range(5)]
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[kernel] == before + 5
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            outs.append(run())  # warms the side stream's scratch before the capture
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                captured = run()
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(captured)
+        for out in outs[1:]:
+            assert torch.equal(out, outs[0]), f"{kernel} N={n} G={g}: a repeat differs"
+        want = segment_aggregate_ref(codes, vals, g, "sum")
+        rows = torch.bincount(codes.long(), minlength=g).max().item()
+        torch.testing.assert_close(outs[0], want, rtol=_sum_rtol(rows), atol=0)
+
+
+def _gamma_message(n, g, v, seed, device, skew=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    codes = torch.randint(0, g, (n,), device=device, dtype=torch.int32, generator=gen)
+    if skew:  # half the rows in segment 0: it is cut into many pieces
+        codes[torch.rand(n, device=device, generator=gen) < 0.5] = 0
+    vals = torch.distributions.Gamma(torch.tensor(2.0, device=device),
+                                     torch.tensor(1 / 5000.0, device=device)).sample((n, v))
+    return codes, vals, g
+
+
+# one message per regime of launch.segment_geometry (thread, thread with
+# column tiles, warp with one and with several columns, sort, sort with
+# split segments and with wide rows), with gamma-valued values
+MEMBER_SPECS = [(30_000, 6, 1), (20_000, 20, 300), (40_000, 300, 2), (20_000, 100, 14),
+                (60_000, 5_000, 1), (50_000, 3_000, 3, True), (200_000, 400, 72, True)]
+
+
+def test_cuda_segment_sums_do_not_depend_on_the_launch(cuda):
+    """The contract of csrc/segment_aggregate.cuh at small size: each
+    message's float sums have the same bits through ``aggregate_op``, alone
+    through ``level_aggregate``, as any member of a mixed level launch, in
+    a launch split into two (as a level plan past ``ROWWISE_MAX_ELEMS``
+    splits it) and past ``SEG_MAX_MEMBERS`` members (two launches); and are
+    within the float32 sum bound of the plain version."""
+    msgs = [_gamma_message(n, g, v, i, cuda, *skew)
+            for i, (n, g, v, *skew) in enumerate(MEMBER_SPECS)]
+    regimes = {launch.segment_geometry(c.shape[0], g, x.shape[1]).name for c, x, g in msgs}
+    assert regimes == {"thread", "warp", "sort"}
+    alone = [ops.aggregate_op(c, x, g, "sum") for c, x, g in msgs]
+    lone_level = [ops.level_aggregate([m], op="sum")[0] for m in msgs]
+    mixed = ops.level_aggregate(msgs, op="sum")
+    reversed_ = ops.level_aggregate(msgs[::-1], op="sum")[::-1]
+    split = ops.level_aggregate(msgs[:2], op="sum") + ops.level_aggregate(msgs[2:], op="sum")
+    before = ops.LAUNCHES["level_segment_aggregate"]
+    many = ops.level_aggregate(msgs * 9, op="sum")
+    assert ops.LAUNCHES["level_segment_aggregate"] == before + 2
     torch.cuda.synchronize()
-    assert ops.LAUNCHES[kernel] == before + 2
-    want = segment_aggregate_ref(codes, vals, g, "sum")
-    rows = torch.bincount(codes.long(), minlength=g).max().item()
-    spread = ((a - b).abs() / want.abs()).max().item()
-    print(f"\nDETERMINISM {kernel}: n={n} G={g} bit-equal={torch.equal(a, b)} "
-          f"max relative difference of the repeats {spread:.3g} (bound {_sum_rtol(rows):.3g} "
-          f"for a segment of {rows} rows)")
-    for out in (a, b):
-        torch.testing.assert_close(out, want, rtol=_sum_rtol(rows), atol=0)
+    for j, (c, x, g) in enumerate(msgs):
+        for other in (lone_level[j], mixed[j], reversed_[j], split[j],
+                      *many[j::len(msgs)]):
+            assert torch.equal(other, alone[j]), f"message {j} {MEMBER_SPECS[j]}"
+        rows = torch.bincount(c.long(), minlength=g).max().item()
+        torch.testing.assert_close(alone[j], segment_aggregate_ref(c, x, g, "sum"),
+                                   rtol=_sum_rtol(rows), atol=0)
 
 
 def test_cuda_covariance_fit_and_augmentation_match_cpu(cuda):

@@ -88,3 +88,217 @@ def test_aggregate_matches_reference_either_way(op, use_kernel):
     got = ops.aggregate(torch.as_tensor(codes), torch.as_tensor(vals), 64, op=op,
                         use_kernel=use_kernel)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+# ---------------------------------------------------------------------------
+# launch geometry, member tables and row orders of the CUDA kernels (their
+# Python side: the CPU reaches it, the card tests run the kernels)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import launch  # noqa: E402
+from repro_torch.relational import StreamBuffer, schema  # noqa: E402
+
+# (N, G, V) per regime: thread, thread with column tiles, warp, sort; small to
+# 2^24 rows
+GEOMETRY_SHAPES = [(64, 8, 1), (1 << 23, 6, 1), (1 << 24, 16, 1), (4096, 300, 2), (1000, 7, 300),
+                   (1 << 24, 12, 8), (20_000, 20, 100), (1 << 23, 10, 336), (1 << 23, 400, 72),
+                   (1 << 23, 100, 200), (1 << 24, 100_000, 1), (1 << 24, 50_000, 3),
+                   (1 << 24, 50_000, 8)]
+
+
+@pytest.mark.parametrize("n,g,v", GEOMETRY_SHAPES)
+def test_segment_geometry_partitions_rows_once(n, g, v):
+    """Blocks of about ``chunk`` rows cover [0, N) once; column tiles cover
+    [0, V) once; shared memory fits the launch; the workspace holds one
+    partial per block, tile and cell, and the merge grid has a warp per tile
+    and cell, exactly when a tile has several blocks.  Past a warp copy's
+    cells the message goes segment-major (sort)."""
+    geo = launch.segment_geometry(n, g, v)
+    if geo.name == "sort":
+        assert g > launch.SEG_THREAD_G and g * v > launch.SEG_WARP_CELLS
+        assert geo.chunk == max(32, launch.SEG_PIECE_ELEMS // v)
+        return
+    assert geo.name == ("thread" if g <= launch.SEG_THREAD_G else "warp")
+    starts = [b * geo.chunk for b in range(geo.blocks)]
+    ends = [min(n, s + geo.chunk) for s in starts]
+    assert starts[0] == 0 and ends[-1] == n
+    assert all(e > s for s, e in zip(starts, ends)) and starts[1:] == ends[:-1]
+    assert geo.tiles == -(-v // geo.vt) and (geo.tiles - 1) * geo.vt < v
+    if geo.name == "thread":
+        assert geo.vt == min(v, launch.SEG_THREAD_COLS) and geo.smem == 4 * launch.THREADS * g
+    else:
+        assert geo.vt == v and g * v <= launch.SEG_WARP_CELLS
+        assert geo.smem == 4 * launch.SEG_WARPS * g * v
+    assert geo.smem <= (96 if geo.name == "thread" else 46) * 1024
+    cells = geo.tiles * g * geo.vt
+    assert (geo.ws, geo.merge) == ((cells * geo.blocks, cells) if geo.blocks > 1 else (0, 0))
+
+
+def test_segment_geometry_reads_no_card(monkeypatch):
+    """The partition is a function of (N, G, V) alone: it asks nothing of a
+    card (so no SM count), and repeats."""
+    def no_card(*args, **kwargs):
+        raise AssertionError("segment_geometry asked the card")
+
+    launch.segment_geometry.cache_clear()
+    for name in ("get_device_properties", "device_count", "current_device",
+                 "is_available"):
+        monkeypatch.setattr(torch.cuda, name, no_card)
+    first = [launch.segment_geometry(*s) for s in GEOMETRY_SHAPES]
+    launch.segment_geometry.cache_clear()
+    assert [launch.segment_geometry(*s) for s in GEOMETRY_SHAPES] == first
+
+
+def _member(n, g, v, seed, index=None):
+    geo = launch.segment_geometry(n, g, v)
+    n_items = n_splits = 0
+    if geo.name == "sort":
+        codes = torch.as_tensor(_inputs(n, g, v, seed)[0])
+        order = ops.row_order(codes, g, geo.chunk)
+        geo = launch.sort_launch(geo, v, order.n_items, order.n_slots, order.n_splits)
+        n_items, n_splits = order.n_items, order.n_splits
+    base = 1000 * (seed + 1)
+    return (geo, base + 1, base + 2, base + 3, base + 4 if n_items else None, n, g, v,
+            n_items, n_splits)
+
+
+MEMBERS = [(30_000, 6, 1), (20_000, 20, 300), (40_000, 300, 2), (20_000, 100, 14),
+           (60_000, 5_000, 1), (50_000, 3_000, 3), (20_000, 400, 72), (64, 8, 1)]
+OWN_FIELDS = ("index", "values", "out", "items", "n", "chunk", "g", "v", "regime", "vt",
+              "tiles", "blocks", "n_items", "n_splits")
+
+
+def _fields(m):
+    return {f: getattr(m, f) for f in OWN_FIELDS}
+
+
+def test_member_table_does_not_depend_on_the_other_members():
+    """A message packed alone, among others, in reverse order or past
+    SEG_MAX_MEMBERS (a second launch) keeps every field of its own; only
+    its first block (counted within its regime's grid), its workspace
+    offset and its first merge warp move, and those follow the members
+    before it."""
+    members = [_member(n, g, v, i) for i, (n, g, v) in enumerate(MEMBERS)]
+    alone = [_fields(launch.pack_members([m])[0].table.m[0]) for m in members]
+    (mixed,) = launch.pack_members(members)
+    t = mixed.table
+    assert t.count == len(members)
+    order = sorted(range(len(members)), key=lambda j: members[j][0].regime)
+    blocks, smem, count = [0, 0, 0, 0], [0, 0, 0, 0], [0, 0, 0, len(members)]
+    ws = merge = 0
+    for slot, j in enumerate(order):
+        geo = members[j][0]
+        m = t.m[slot]
+        assert _fields(m) == alone[j]
+        assert (m.first_block, m.ws, m.aux) == (blocks[geo.regime], ws, merge)
+        blocks[geo.regime] += geo.blocks * geo.tiles
+        smem[geo.regime] = max(smem[geo.regime], geo.smem)
+        count[geo.regime] += 1
+        ws += geo.ws
+        merge += geo.merge
+    blocks[3] = -(-merge // launch.SEG_WARPS)
+    assert count == [3, 2, 3, 8]
+    assert list(t.members) == count
+    assert list(t.first) == [0, count[0], count[0] + count[1], 0]
+    assert list(t.grid) == blocks and list(t.smem) == smem
+    assert (mixed.grid, mixed.ws) == (sum(blocks), ws)
+    (rev,) = launch.pack_members(members[::-1])
+    assert (sorted(repr(_fields(rev.table.m[j])) for j in range(len(members)))
+            == sorted(repr(a) for a in alone))
+    many = launch.pack_members(members * 9)
+    assert [x.table.count for x in many] == [launch.SEG_MAX_MEMBERS,
+                                            len(members) * 9 - launch.SEG_MAX_MEMBERS]
+    flat = sorted(repr(_fields(x.table.m[j])) for x in many for j in range(x.table.count))
+    assert flat == sorted(repr(a) for a in alone * 9)
+
+
+def test_member_table_layout_matches_the_c_struct():
+    """``SegMember`` is ``struct segagg::Member`` (96 bytes) and the table
+    (count, four arrays over the three regimes and the merge grid,
+    SEG_MAX_MEMBERS members) stays under the 4 KiB of a kernel's
+    parameters."""
+    import ctypes
+
+    assert ctypes.sizeof(launch.SegMember) == 96
+    assert ctypes.sizeof(launch.SegTable) == 8 + 64 + 96 * launch.SEG_MAX_MEMBERS <= 4096 - 16
+
+
+@pytest.mark.parametrize("piece", [1, 3, 64])
+def test_row_order_is_stable_with_right_offsets_and_pieces(piece):
+    rng = np.random.default_rng(piece)
+    codes = rng.integers(-1, 12, 500).astype(np.int32)   # -1 and 11 match nothing
+    codes[rng.random(500) < 0.4] = 3                      # one heavy segment
+    g = 11
+    order = ops.row_order(torch.as_tensor(codes), g, piece)
+    perm = order.perm.numpy()
+    assert order.perm.dtype == torch.int32 and sorted(perm.tolist()) == list(range(500))
+    np.testing.assert_array_equal(perm, np.argsort(codes, kind="stable"))
+    inside = codes[(codes >= 0) & (codes < g)]
+    want = np.searchsorted(np.sort(codes), np.arange(g + 1))
+    np.testing.assert_array_equal(order.offsets.numpy(), want)
+    assert np.array_equal(np.diff(want), np.bincount(inside, minlength=g))
+    table = order.table.numpy()
+    items = table[: order.n_items * 5].reshape(-1, 5)
+    splits = table[order.n_items * 5:].reshape(-1, 3)
+    assert len(splits) == order.n_splits
+    covered = np.zeros(500, np.int32)
+    for seg, begin, end, slot, split in items:
+        assert want[seg] <= begin < end <= want[seg + 1] and end - begin <= piece
+        covered[begin:end] += 1
+        if split >= 0:
+            first, pieces, of = splits[split]
+            assert of == seg and first <= slot < first + pieces
+        else:
+            assert slot == -1 and want[seg + 1] - want[seg] <= piece
+    assert np.array_equal(covered[want[0]: want[g]], np.ones(want[g] - want[0], np.int32))
+    assert not covered[: want[0]].any() and not covered[want[g]:].any()
+    assert order.n_slots == int(splits[:, 1].sum()) if len(splits) else order.n_slots == 0
+
+
+def test_cached_row_order_follows_the_codes_tensor():
+    """The order is kept per codes tensor: views (a shard's row block) get
+    their own, a write to the codes rebuilds it, and a new relation version
+    (a delta, an ingest tick, a compaction) comes with new codes from the
+    catalog and so with a new order."""
+    cat = schema.salesforce(n_opp=5_000, n_user=50, n_camp=20, n_acc=30)
+    opp = cat.get("Opp")
+    attrs = ("user_id",)
+    codes, g = cat.dev_flat_codes(opp, attrs, "cpu")
+    built = ops.ORDER_BUILDS["orders"]
+    first = ops.cached_row_order(codes, g, 64)
+    assert ops.cached_row_order(codes, g, 64) is first
+    half = codes.shape[0] // 2
+    block = ops.cached_row_order(codes[half:], g, 64)
+    assert block is not first and ops.cached_row_order(codes[half:], g, 64) is block
+    np.testing.assert_array_equal(block.perm.numpy(),
+                                  np.argsort(codes[half:].numpy(), kind="stable"))
+    assert ops.ORDER_BUILDS["orders"] == built + 2
+    rng = np.random.default_rng(0)
+
+    def rows(n):
+        return ({a: rng.integers(0, cat.domains()[a], n).astype(np.int32) for a in opp.attrs},
+                {m: rng.random(n).astype(np.float32) for m in opp.measures})
+
+    delta, _ = opp.append_rows(*rows(40))                  # a delta
+    buf = StreamBuffer(delta)
+    buf.append(*rows(30))
+    buf.delete(np.arange(delta.num_rows + 30) % 7 == 0)
+    tick, _ = buf.coalesce()                               # an ingest tick, tombstones kept
+    compacted, _ = tick.compact()                          # a compaction
+    assert compacted.num_rows < tick.num_rows
+    seen = [codes]
+    for rel in (delta, tick, compacted):
+        cat.put(rel)
+        new_codes, _ = cat.dev_flat_codes(rel, attrs, "cpu")
+        assert all(new_codes is not c for c in seen)
+        seen.append(new_codes)
+        before = ops.ORDER_BUILDS["orders"]
+        order = ops.cached_row_order(new_codes, g, 64)
+        assert ops.ORDER_BUILDS["orders"] == before + 1
+        np.testing.assert_array_equal(order.perm.numpy(),
+                                      np.argsort(new_codes.numpy(), kind="stable"))
+    assert ops.cached_row_order(codes, g, 64) is first
+    codes[0] = (int(codes[0]) + 1) % g
+    again = ops.cached_row_order(codes, g, 64)
+    assert again is not first
+    np.testing.assert_array_equal(again.perm.numpy(), np.argsort(codes.numpy(), kind="stable"))

@@ -1,0 +1,260 @@
+#!/usr/bin/env python3
+"""The segment kernels of an earlier tree against this tree's, on one card.
+
+    python3 tools/segment_old_new.py OLD_ROOT
+
+``OLD_ROOT`` is a copy of the earlier tree in a git-ignored directory, for
+example ``mkdir -p build/old && git archive <commit> | tar -x -C build/old``.
+The script runs four child processes in turns, old, new, new, old.  Each
+imports ``repro_torch`` from one tree's ``src/``, builds that tree's kernels
+and times ``segment_aggregate`` (through ``aggregate_op``) and
+``level_segment_aggregate`` (through ``level_aggregate``), checked exactly
+against the plain version on integer-valued data first:
+
+- at ``chip_smoke.py`` kernel phase's main shapes: N = 2^24 rows into
+  (G, V) = (100,000, 1), (50,000, 3), (12, 8), (16, 1), and the level
+  launch of (50,000, 8) and (25,000, 8), for sum and max; and, for sum, at
+  one more input per regime of this tree's ``segment_geometry`` (2^24 rows
+  into (64, 4), (300, 2) and (1,000, 1); 2^22 rows into (10, 336));
+- on the inputs of the quickstart's largest launch of each kernel at 10M
+  opportunities (``PERF.md``'s kernel records), for sum and max;
+- on the quickstart's largest level launch concatenated into one operand
+  (global segment ids, the ⊕-identity in the padding), as the earlier
+  tree's ``level_aggregate`` hands it to its kernel: that kernel's time
+  without the concatenation (what the earlier tree's ``chip_smoke.py`` timed
+  as its kernel record);
+- ``ms``: wrapper calls back to back between CUDA events (host cost
+  included); ``device_ms``: the calls replayed from a CUDA graph, inputs
+  rotated past the 50 MB L2 cache (``chip_smoke.device_ms``);
+- the quickstart's wall time (``chip_smoke.quickstart`` on a warm catalog,
+  synced), its first run apart: this tree builds its row orders there.
+
+This tree's child also times each sort-regime input's row order
+(``ops.row_order``: the ``torch.sort`` and the scans) and its bytes, the
+orders the first quickstart builds, and the one PyTorch call per input
+(``index_add_`` / ``scatter_reduce_``).  The table goes to standard output
+and ``chiprun_out/segment_old_new.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+MAIN = [(1 << 24, 100_000, 1), (1 << 24, 50_000, 3), (1 << 24, 12, 8), (1 << 24, 16, 1)]
+LEVEL = [(1 << 24, 50_000, 8), (1 << 24, 25_000, 8)]
+# one more input per regime of this tree's launch.segment_geometry: thread
+# past 48 KiB of copies, thread with column tiles, warp with two columns and
+# with one
+REGIMES = [(1 << 24, 64, 4), (1 << 22, 10, 336), (1 << 24, 300, 2), (1 << 24, 1000, 1)]
+QUICKSTART_RUNS = 5
+
+
+def child(tree: Path, label: str, first_new: bool) -> dict:
+    import torch
+
+    sys.path.insert(0, str(tree / "src"))
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.core import Query, Treant
+    from repro_torch.core import semiring as sr
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_aggregate import ops
+    from repro_torch.kernels.segment_aggregate.ref import segment_aggregate_ref
+    from repro_torch.relational import schema
+    from repro_torch.relational.relation import mask_in
+    from repro_torch.relational.sql import parse
+
+    new = label == "new"
+    build.build()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def message(n, g, v):
+        codes = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
+        return codes, torch.randint(-20, 21, (n, v), generator=gen, device=dev).float(), g
+
+    def as_op(items, op):
+        if op == "sum":
+            return items
+        fill = float("inf") if op == "min" else float("-inf")
+        return [(c, x.masked_fill(x == 0, fill), g) for c, x, g in items]
+
+    rows = []
+
+    def measure(case, name, items, op, exact=True):
+        run, args = cs.segment_call(ops, name, items, op)
+        outs = run(*args)
+        outs = outs if isinstance(outs, list) else [outs]
+        torch.cuda.synchronize()
+        for (c, x, g), o in zip(items, outs):
+            want = segment_aggregate_ref(c, x, g, op)
+            ok = torch.equal(o, want) if exact else torch.allclose(o, want, rtol=1e-5, atol=0)
+            if not ok:
+                raise SystemExit(f"{label} {case} {name} {op} disagrees with the plain version")
+        row = dict(case=case, kernel=name, op=op, members=len(items),
+                   n=sum(c.shape[0] for c, _, _ in items), g=sum(g for _, _, g in items),
+                   v=max(x.shape[1] for _, x, _ in items),
+                   ms=cs.time_ms(lambda: run(*args)), device_ms=cs.device_ms(run, args),
+                   bound_ms=sum(cs.bound_ms(c.shape[0], x.shape[1], g) for c, x, g in items))
+        if first_new:
+            cat_codes, cat_vals, total = cs.concatenated(torch, items, op)
+            row["library_ms"] = cs.time_ms(cs.library_call(cat_codes, cat_vals, total, op))
+            row["plain_ms"] = cs.time_ms(lambda: [segment_aggregate_ref(c, x, g, op)
+                                                  for c, x, g in items], 3, 3)
+        if new:
+            from repro_torch.kernels import launch
+
+            row["regimes"] = [launch.segment_geometry(c.shape[0], g, x.shape[1]).name
+                              for c, x, g in items]
+            row["orders"] = []
+            for (c, x, g), regime in zip(items, row["regimes"]):
+                if regime != "sort":
+                    continue
+                piece = launch.segment_geometry(c.shape[0], g, x.shape[1]).chunk
+                order = ops.row_order(c, g, piece)
+                row["orders"].append(dict(
+                    n=c.shape[0], g=g, nbytes=order.nbytes, n_items=order.n_items,
+                    n_splits=order.n_splits,
+                    build_ms=cs.time_ms(lambda: ops.row_order(c, g, piece), 1, 5)))
+        rows.append(row)
+
+    for n, g, v in MAIN:
+        base = [message(n, g, v)]
+        for op in ("sum", "max"):
+            measure("kernel phase", "segment_aggregate", as_op(base, op), op)
+    for n, g, v in REGIMES:
+        measure("regime", "segment_aggregate", [message(n, g, v)], "sum")
+    base = [message(*spec) for spec in LEVEL]
+    for op in ("sum", "max"):
+        measure("kernel phase", "level_segment_aggregate", as_op(base, op), op)
+    del base
+
+    # the quickstart at 10M opportunities: capture each kernel's largest launch
+    cat = schema.salesforce(n_opp=200_000 * cs.SCALE, n_user=2_000 * cs.SCALE,
+                            n_camp=500 * cs.SCALE, n_acc=1_000 * cs.SCALE)
+    rt = (Treant, Query, sr, mask_in, parse)
+    captured: dict = {}
+    real = {"segment_aggregate": ops.aggregate_op, "level_segment_aggregate": ops.level_aggregate}
+
+    def keep(name, items, op):
+        size = sum(x.numel() for _, x, _ in items)
+        if name not in captured or size > captured[name][1]:
+            captured[name] = ([(c.clone(), x.clone(), g) for c, x, g in items], size, op)
+
+    def aggregate_op(codes, values, num_segments, op="sum"):
+        keep("segment_aggregate", [(codes, values if values.dim() == 2 else values[:, None],
+                                    num_segments)], op)
+        return real["segment_aggregate"](codes, values, num_segments, op)
+
+    def level_aggregate(items, op="sum"):
+        keep("level_segment_aggregate", list(items), op)
+        return real["level_segment_aggregate"](items, op=op)
+
+    builds = ops.ORDER_BUILDS["orders"] if new else 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs.quickstart(torch, rt, cat, "cuda")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    ops.aggregate_op, ops.level_aggregate = aggregate_op, level_aggregate
+    try:
+        cs.quickstart(torch, rt, cat, "cuda")
+    finally:
+        ops.aggregate_op, ops.level_aggregate = real["segment_aggregate"], \
+            real["level_segment_aggregate"]
+    walls = []
+    for _ in range(QUICKSTART_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cs.quickstart(torch, rt, cat, "cuda")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    quick = dict(first_ms=first_s * 1e3, walls_ms=walls, median_ms=statistics.median(walls))
+    if new:
+        quick["orders_built"] = ops.ORDER_BUILDS["orders"] - builds
+        quick["order_bytes"] = sum(order.nbytes for _, orders in ops._ORDERS.values()
+                                   for order, _ in orders.values())
+    for name, (items, _, op) in captured.items():
+        for o in (op, "max" if op == "sum" else "sum"):
+            measure("quickstart", name, as_op(items, o) if o != op else items, o,
+                    exact=o != "sum")
+    # the level launch's operands concatenated, as the earlier tree's wrapper
+    # hands them to its kernel: that kernel's time without the concatenation
+    items, _, op = captured["level_segment_aggregate"]
+    codes, values, total = cs.concatenated(torch, items, op)
+    measure("concatenated", "level_segment_aggregate", [(codes, values, total)], op,
+            exact=op != "sum")
+    return {"label": label, "tree": str(tree), "card": cs.card_line(), "rows": rows,
+            "quickstart": quick}
+
+
+def main() -> int:
+    if len(sys.argv) == 5 and sys.argv[1] == "--child":
+        print(json.dumps(child(Path(sys.argv[2]).resolve(), sys.argv[3], sys.argv[4] == "1")))
+        return 0
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    old = Path(sys.argv[1]).resolve()
+    if not (old / "src" / "repro_torch").is_dir():
+        print(f"{old} holds no src/repro_torch", file=sys.stderr)
+        return 2
+    runs = []
+    first_new = True
+    for label in ("old", "new", "new", "old"):
+        tree = old if label == "old" else ROOT
+        flag = "1" if label == "new" and first_new else "0"
+        first_new = first_new and label != "new"
+        proc = subprocess.run([sys.executable, __file__, "--child", str(tree), label, flag],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    print(f"card: {runs[0]['card']}")
+    table: dict = {}
+    for run in runs:
+        for row in run["rows"]:
+            key = (row["case"], row["kernel"], row["op"], row["n"], row["g"], row["v"])
+            table.setdefault(key, {}).setdefault(run["label"], []).append(row)
+    summary = []
+    for (case, name, op, n, g, v), by_label in table.items():
+        new_rows = by_label["new"]
+        extra = next(r for r in new_rows if "library_ms" in r)
+        line = dict(case=case, kernel=name, op=op, n=n, g=g, v=v,
+                    members=new_rows[0]["members"], regimes=new_rows[0]["regimes"],
+                    bound_ms=new_rows[0]["bound_ms"], library_ms=extra["library_ms"],
+                    plain_ms=extra["plain_ms"], orders=new_rows[0]["orders"])
+        for lab in ("old", "new"):
+            line[f"{lab}_ms"] = [r["ms"] for r in by_label[lab]]
+            line[f"{lab}_device_ms"] = [r["device_ms"] for r in by_label[lab]]
+        summary.append(line)
+        print(f"{case:12s} {name:24s} {op:3s} N={n:>9d} G={g:>6d} V={v} "
+              f"({'+'.join(line['regimes'])}) old ms {line['old_ms']} device "
+              f"{line['old_device_ms']}  new ms {line['new_ms']} device {line['new_device_ms']}  "
+              f"bound {line['bound_ms']:.4f} plain {line['plain_ms']:.3f} "
+              f"library {line['library_ms']:.4f}")
+        for o in line["orders"]:
+            print(f"    row order N={o['n']} G={o['g']}: {o['build_ms']:.3f} ms, "
+                  f"{o['nbytes']} B, {o['n_items']} items, {o['n_splits']} split segments")
+    for run in runs:
+        q = run["quickstart"]
+        print(f"quickstart {run['label']}: first run {q['first_ms']:.1f} ms, then "
+              f"{[round(w, 1) for w in q['walls_ms']]} ms (median {q['median_ms']:.1f})"
+              + (f"; {q['orders_built']} row orders built, {q['order_bytes']} B"
+                 if "orders_built" in q else ""))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "segment_old_new.json").write_text(json.dumps(
+        {"card": runs[0]["card"], "summary": summary, "runs": runs}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
