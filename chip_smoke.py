@@ -11,15 +11,22 @@ CUDA toolkit.  Phases:
    (one ``nvcc`` per source, all at once) and print the build time;
 3. kernel phase: ``aggregate_op`` and ``level_aggregate`` against their plain
    PyTorch versions on the card, for sum/min/max, at small shapes and at the
-   main path's shapes (N = 2^24 rows, G up to 100 000, V in {1, 3, 8}),
-   with empty segments and -1 pad rows.  Min/max and sums of integer-valued
-   data must match exactly; gamma-valued sums to rtol 1e-5.  Gamma-valued
+   main path's shapes (N = 2^24 rows, G up to 100 000, V in {1, 3, 8}, and
+   the warp regime's (300, 2) and (1,000, 1)), with empty segments and -1
+   pad rows.  Min/max and sums of integer-valued data must match exactly;
+   gamma-valued sums to rtol 1e-5; a sort-regime message in code order
+   (``ordered=True``) must give the bits of its row order.  Gamma-valued
    sums at 2^24 rows, one message per regime and a skewed one, must also
    give the same bits over repeats, a second stream and a CUDA graph
-   replay, through ``aggregate_op``, alone through ``level_aggregate`` and
-   as members of mixed, reversed and split level launches.  Each shape is
-   timed: kernel, memory bound at 3.35 TB/s, plain version, and one
-   ``index_add_`` / ``scatter_reduce_`` call on the same inputs.  Then
+   replay, through ``aggregate_op``, alone through ``level_aggregate``, as
+   members of mixed, reversed and split level launches, and in code order
+   (sort regime) alone and in a mixed launch.  Each shape is timed (``ms``
+   and ``device_ms``): kernel, memory bound at 3.35 TB/s, plain version,
+   and one ``index_add_`` / ``scatter_reduce_`` call on the same inputs; a
+   sort-regime shape also in code order, beside the library call on the
+   code-ordered inputs, its own bound (no codes read: the values, the row
+   order's work-item table and the output) and the permutation's own time.
+   Then
    ``semiring_contract`` (float32, float16, σ mask) and ``tropical_contract``
    (min, max, ±inf absent tuples) against their plain versions at
    ``tests/test_kernels.py``'s shapes and at the tall and wide regimes'
@@ -121,10 +128,12 @@ CUDA toolkit.  Phases:
     ``fit_augmented`` and ``fit_unfactorized_baseline`` for the first of
     each key.  Prints the fit and calibrate times, per-key candidate times
     and messages, the peak device memory.  At most one computed message per
-    candidate, none for a repeated key; no kernel launch (the covariance
-    ring reduces in plain torch).  The base element (c, s, Q) must be within
-    its float32 sum bound of float64 numpy sums of the same join; R² and
-    weights against a float64 numpy fit, and augmented R² against the cold
+    candidate, none for a repeated key; the covariance ring's segment ⊕
+    launches both segment kernels and no contract kernel, and two fresh
+    fits give the same element and weights bit for bit.  The base element
+    (c, s, Q) must be within its float32 sum bound of float64 numpy sums of
+    the same join; R² and weights against a float64 numpy fit, and
+    augmented R² against the cold
     baseline and numpy, within the reference test's tolerances or the
     bound carried through the solve, whichever is wider; the drive at
     60,000 sales must equal the CPU;
@@ -210,6 +219,10 @@ CUDA toolkit.  Phases:
     ``memory_allocated`` by them plus its rounding (512 B granules; a
     large-pool block keeps up to 1 MiB unsplit).
     ``python -m repro_torch.launch.dryrun --all`` runs outside this script.
+
+Each phase that drives a path prints, on a line of its own, the messages
+the segment kernels reduced by regime (thread, warp, sort through the row
+order, sort in code order: ``ops.MEMBERS``).
 
 Two times go with every kernel: ``ms``, wrapper calls back to back between
 CUDA events (what the main path pays, host cost included), and
@@ -344,6 +357,22 @@ def bound_ms(n: int, v: int, g: int) -> float:
     return (n * 4 + n * v * 4 + g * v * 4) / HBM_BYTES_PER_S * 1e3
 
 
+def ordered_bound_ms(n: int, v: int, g: int, order) -> float:
+    """Least time on the card for a message whose values arrive in code
+    order: it reads no codes, only the values (4NV) and its row order's
+    work-item table once, and writes the output (4GV) once."""
+    table = order.table.numel() * order.table.element_size()
+    return (n * v * 4 + table + g * v * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def items_bound_ms(ops, items: list) -> float:
+    """The bound of ``(codes, values, g)`` or ``(codes, values, g, ordered)``
+    messages: each by its own form."""
+    return sum(ordered_bound_ms(c.shape[0], x.shape[1], g, ops.code_order(c, g, x.shape[1]))
+               if rest and rest[0] else bound_ms(c.shape[0], x.shape[1], g)
+               for c, x, g, *rest in items)
+
+
 def contract_bound(g: int, b: int, a: int, in_bytes: int = 4, masked: bool = False,
                    tropical: bool = False) -> tuple[float, str]:
     """Least time on the card for one (G, B) x (B, A) contraction: the larger
@@ -397,6 +426,23 @@ def read_launches(K) -> dict:
     return {**K.seg_ops.LAUNCHES, **K.sc_ops.LAUNCHES, **K.tc_ops.LAUNCHES}
 
 
+def print_regimes(K, label: str) -> dict:
+    """Print and return the messages the segment kernels reduced since the
+    counts were last set to 0, by regime: thread, warp, sort read through
+    the row order (``sort``) and sort in code order (``sort_ordered``)."""
+    regimes = dict(K.seg_ops.MEMBERS)
+    print(f"  {label}: segment-kernel messages by regime {regimes}", flush=True)
+    return regimes
+
+
+def aligned_codes(ops, codes, values, g: int, ordered: bool):
+    """The codes of ``values``' rows: ``codes`` itself, or in its row order
+    when the values arrive in code order."""
+    if not ordered:
+        return codes
+    return codes.index_select(0, ops.code_order(codes, g, values.shape[1]).perm)
+
+
 @contextlib.contextmanager
 def recording_contracts(K, captured: dict, shapes: list):
     """Record every contract-kernel launch's shape, and keep one copy of the
@@ -445,7 +491,8 @@ def kernel_phase(torch, ops, ref, report: dict) -> None:
 
     rows = []
     small = [(64, 8, 1), (1000, 64, 3), (77, 13, 5), (4096, 300, 2), (100, 50, 2)]
-    main = [(1 << 24, 100_000, 1), (1 << 24, 50_000, 3), (1 << 24, 12, 8), (1 << 24, 16, 1)]
+    main = [(1 << 24, 100_000, 1), (1 << 24, 50_000, 3), (1 << 24, 12, 8), (1 << 24, 16, 1),
+            (1 << 24, 300, 2), (1 << 24, 1000, 1)]
     for n, g, v in small + main:
         codes = codes_for(n, g if (n, g, v) != (100, 50, 2) else 10)  # last small: empty segments
         base = ints(n, v)
@@ -456,14 +503,35 @@ def kernel_phase(torch, ops, ref, report: dict) -> None:
             want = ref.segment_aggregate_ref(codes, x, g, op)
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"aggregate_op {op} N={n} G={g} V={v} disagrees")
+            order = ops.code_order(codes, g, v)
+            if order is not None:  # the sort regime: the same message in code order
+                xo, co = x.index_select(0, order.perm), codes.index_select(0, order.perm)
+                check(torch.equal(ops.aggregate_op(codes, xo, g, op, ordered=True), got),
+                      f"aggregate_op {op} N={n} G={g} V={v}: code order gives other bits")
             if (n, g, v) in main:
-                rows.append(dict(
+                row = dict(
                     kernel="segment_aggregate", n=n, g=g, v=v, op=op, data="integer",
+                    regime=ops._launch.segment_geometry(n, g, v).name,
                     ms=time_ms(lambda: ops.aggregate_op(codes, x, g, op)),
+                    device_ms=device_ms(lambda c, y: ops.aggregate_op(c, y, g, op), (codes, x)),
                     plain_ms=time_ms(lambda: ref.segment_aggregate_ref(codes, x, g, op), 3, 3),
                     library_ms=time_ms(library_call(codes, x, g, op)),
                     bound_ms=bound_ms(n, v, g),
-                ))
+                )
+                if order is not None:
+                    row.update(
+                        ordered_ms=time_ms(lambda: ops.aggregate_op(codes, xo, g, op,
+                                                                    ordered=True)),
+                        ordered_device_ms=device_ms(
+                            lambda c, y: ops.aggregate_op(c, y, g, op, ordered=True),
+                            (codes, xo)),
+                        ordered_library_ms=time_ms(library_call(co, xo, g, op)),
+                        ordered_bound_ms=ordered_bound_ms(n, v, g, order),
+                        permutation_ms=time_ms(lambda: x.index_select(0, order.perm)),
+                    )
+                rows.append(row)
+            if order is not None:
+                del xo, co
     # gamma-valued sums: float32 sums against the float64-accumulated plain version
     for n, g, v in main:
         codes = codes_for(n, g)
@@ -504,9 +572,17 @@ def kernel_phase(torch, ops, ref, report: dict) -> None:
     check(ops.level_segment_aggregate(padded, vals, 4, "sum")[:, 0].tolist()
           == [3.0, 0.0, 3.0, 0.0], "level kernel does not skip -1 pad rows")
     for r in rows:
+        device = f" (device {r['device_ms']:.4f})" if "device_ms" in r else ""
         print(f"  {r['kernel']:24s} {r['op']:3s} N={r['n']:>9d} G={r['g']:>6d} V={r['v']} "
-              f"kernel {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms  "
-              f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms", flush=True)
+              f"{r.get('regime', 'level'):6s} kernel {r['ms']:.4f} ms{device}  library "
+              f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms", flush=True)
+        if "ordered_ms" in r:
+            print(f"  {'':24s} {'':3s} {'':11s} {'':8s} {'':3s} code order: kernel "
+                  f"{r['ordered_ms']:.4f} ms (device {r['ordered_device_ms']:.4f})  library "
+                  f"{r['ordered_library_ms']:.4f} ms  bound {r['ordered_bound_ms']:.4f} ms  "
+                  f"permutation {r['permutation_ms']:.4f} ms",
+                  flush=True)
     report["kernel_phase"] = rows
 
 
@@ -520,7 +596,8 @@ def same_bits_phase(torch, ops, ref, main: list, codes_for) -> dict:
     replay, through ``aggregate_op``, alone through ``level_aggregate``, and
     as a member of a mixed level launch, of the same launch reversed and of
     a launch split in two (as the level plan splits past
-    ``plans.ROWWISE_MAX_ELEMS``)."""
+    ``plans.ROWWISE_MAX_ELEMS``); a sort-regime message in code order gives
+    the same bits, alone and in the mixed launch."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(22)
     gamma = torch.distributions.Gamma(torch.tensor(2.0, device=dev),
@@ -553,12 +630,22 @@ def same_bits_phase(torch, ops, ref, main: list, codes_for) -> dict:
             paths["graph replay"] = ops.level_aggregate(msgs, op="sum")
     torch.cuda.current_stream().wait_stream(side)
     graph.replay()
+    in_order = []    # each sort-regime message with its values in code order
+    for c, x, g in msgs:
+        order = ops.code_order(c, g, x.shape[1])
+        in_order.append((c, x, g) if order is None else (c, x.index_select(0, order.perm), g, True))
+    sorted_ = [j for j, m in enumerate(in_order) if len(m) == 4]
+    check(bool(sorted_), "same bits: no sort-regime message")
+    alone_ordered = {j: ops.aggregate_op(*in_order[j][:3], "sum", ordered=True) for j in sorted_}
+    mixed_ordered = ops.level_aggregate(in_order, op="sum")
+    paths["code order"] = [alone_ordered.get(j, a) for j, a in enumerate(alone)]
+    paths["mixed level in code order"] = mixed_ordered
     torch.cuda.synchronize()
     for path, outs in paths.items():
         for (c, x, g), a, o in zip(msgs, alone, outs):
             check(torch.equal(o, a), f"gamma sum N={c.shape[0]} G={g} V={x.shape[1]}: "
                   f"{path} gives other bits than aggregate_op")
-    del graph
+    del graph, in_order, mixed_ordered, alone_ordered
     regimes = [ops._launch.segment_geometry(c.shape[0], g, x.shape[1]).name for c, x, g in msgs]
     print(f"  same bits: {len(msgs)} gamma messages of 2^24 rows ({', '.join(regimes)}) equal "
           f"over {', '.join(paths)}; max relative errors "
@@ -864,13 +951,13 @@ def slice_phase(torch, np, K, rt, schema, report: dict) -> dict:
     real_launch = kernel.launch
 
     def recording_launch(name, members, op):
-        for codes, values, out, _, _ in members:
+        for codes, values, out, geom, _, ordered in members:
             shapes.append((name, int(values.shape[0]), int(values.shape[1]), int(out.shape[0]),
-                           op))
-        size = sum(values.numel() for _, values, _, _, _ in members)
+                           op, geom.name, ordered))
+        size = sum(m[1].numel() for m in members)
         if name not in captured or size > captured[name][1]:
-            captured[name] = ([(c.clone(), x.clone(), int(o.shape[0]))
-                               for c, x, o, _, _ in members], size, op)
+            captured[name] = ([(c.clone(), x.clone(), int(o.shape[0]), ordered)
+                               for c, x, o, _, _, ordered in members], size, op)
         return real_launch(name, members, op)
 
     kernel.launch = recording_launch
@@ -882,6 +969,7 @@ def slice_phase(torch, np, K, rt, schema, report: dict) -> dict:
     gpu = quickstart(torch, rt, cat, "cuda")
     launches = read_launches(K)
     print(f"slice: launches on the main path {launches}", flush=True)
+    regimes = print_regimes(K, "slice")
     for name in SEGMENT:
         check(launches[name] > 0, f"{name} never launched on the main path")
     for name, answer in gpu["answers"].items():
@@ -921,6 +1009,7 @@ def slice_phase(torch, np, K, rt, schema, report: dict) -> dict:
         cpu_offline_ms=cpu["offline_s"] * 1e3,
         cpu_latency_ms={k: v * 1e3 for k, v in cpu["latency_s"].items()},
         plans=gpu["plans"], launch_shapes=shapes, per_edge=edges, check_calibration=True,
+        regimes=regimes,
     )
     profile_phase(torch, "slice", lambda: quickstart(torch, rt, cat, "cuda"), report)
     return dict(cat=cat, captured=captured, launches=launches, answers=gpu["answers"])
@@ -1033,6 +1122,7 @@ def dense_phase(torch, np, K, rt, sliced: dict, report: dict) -> dict:
     gpu = quickstart(torch, rt, cat, "cuda", dense_rows_threshold=DENSE_ROWS)
     launches = read_launches(K)
     print(f"dense: launches on the dense path {launches}", flush=True)
+    print_regimes(K, "dense")
     for name in CONTRACT:
         check(launches[name] > 0, f"{name} never launched on the dense path")
     t0 = time.perf_counter()
@@ -1212,15 +1302,26 @@ def contract_shapes_phase(torch, K, captured: dict, report: dict) -> list[dict]:
 
 def segment_call(ops, name: str, items: list, op: str):
     """``(fn, args)``: the wrapper call that launches kernel ``name`` over
-    ``items`` (``(codes, values, g)`` messages), its tensors flat in ``args``
-    so that ``device_ms`` can rotate copies of them."""
-    gs = [g for _, _, g in items]
-    args = tuple(t for c, x, _ in items for t in (c, x))
+    ``items`` (``(codes, values, g)`` messages, or ``(codes, values, g,
+    ordered)``), its tensors flat in ``args`` so that ``device_ms`` can
+    rotate copies of them.  A copy of codes keeps its own row order: the
+    first call through each copy builds it, before the timing."""
+    # (g,) or (g, True): a message in row order is passed as the wrappers
+    # have always taken it
+    tails = [(m[2], True) if len(m) > 3 and m[3] else (m[2],) for m in items]
+    args = tuple(t for c, x, *_ in items for t in (c, x))
     if name == "segment_aggregate":
-        (g,) = gs
-        return (lambda c, x: ops.aggregate_op(c, x, g, op)), args
+        ((g, *ordered),) = tails
+        kw = {"ordered": True} if ordered else {}
+        return (lambda c, x: ops.aggregate_op(c, x, g, op, **kw)), args
     return (lambda *flat: ops.level_aggregate(
-        [(flat[2 * j], flat[2 * j + 1], g) for j, g in enumerate(gs)], op=op)), args
+        [(flat[2 * j], flat[2 * j + 1], *tail) for j, tail in enumerate(tails)], op=op)), args
+
+
+def plain_items(ops, items: list) -> list:
+    """``(codes, values, g)`` of each message, the codes in its values' order."""
+    return [(aligned_codes(ops, c, x, g, bool(rest and rest[0])), x, g)
+            for c, x, g, *rest in items]
 
 
 def concatenated(torch, items: list, op: str):
@@ -1248,14 +1349,15 @@ def kernel_records(torch, K, sliced: dict, contract_rows: list[dict],
         run, args = segment_call(ops, name, items, op)
         outs = run(*args)
         outs = outs if isinstance(outs, list) else [outs]
-        wants = [ref.segment_aggregate_ref(c, x, g, op) for c, x, g in items]
+        plain = plain_items(ops, items)
+        wants = [ref.segment_aggregate_ref(c, x, g, op) for c, x, g in plain]
         torch.cuda.synchronize()
         for got, want in zip(outs, wants):
             if op == "sum":
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
             else:
                 check(torch.equal(got, want), f"{name} disagrees on its main-path inputs")
-        cat_codes, cat_vals, total = concatenated(torch, items, op)
+        cat_codes, cat_vals, total = concatenated(torch, plain, op)
         n, v = cat_vals.shape
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1264,13 +1366,14 @@ def kernel_records(torch, K, sliced: dict, contract_rows: list[dict],
             "ms": time_ms(lambda: run(*args)),
             "device_ms": device_ms(run, args),
             "plain_ms": time_ms(lambda: [ref.segment_aggregate_ref(c, x, g, op)
-                                         for c, x, g in items], 3, 3),
-            "bound_ms": sum(bound_ms(c.shape[0], x.shape[1], g) for c, x, g in items),
+                                         for c, x, g in plain], 3, 3),
+            "bound_ms": items_bound_ms(ops, items),
             "bound_by": "bytes",
             "library_ms": time_ms(library_call(cat_codes, cat_vals, total, op)),
             "shape": {"n": n, "v": v, "g": total, "op": op, "members": len(items),
                       "regimes": [K.launch.segment_geometry(c.shape[0], g, x.shape[1]).name
-                                  for c, x, g in items]},
+                                  for c, x, g in plain],
+                      "code_order": [bool(m[3]) for m in items]},
         })
     for name in CONTRACT:
         source, replaces = KERNEL_SOURCES[name]
@@ -1436,6 +1539,8 @@ def live_drive(torch, np, K, L, cat, device: str) -> dict:
             queries={v: res.queries[v] for v in res.affected}, dense_rows_threshold=0,
         ))
     session_launches = read_launches(K)
+    if device == "cuda":
+        print_regimes(K, "session")
     wm0 = t.catalog.watermark
     user_updates = 0
     for tick in range(1, LIVE_TICKS + 1):
@@ -1526,6 +1631,8 @@ def live_drive(torch, np, K, L, cat, device: str) -> dict:
     ))
     dsess.close()
     total = read_launches(K)
+    if device == "cuda":
+        print_regimes(K, "session and ingest")
     return dict(
         steps=steps, open_ms=open_ms, dense_open_ms=dense_open_ms, ingest=ingest,
         launches_session=session_launches,
@@ -1789,14 +1896,14 @@ def cube_build_probe(torch, L, builds: list, cuda: bool):
     real_build, real_run = L.Session._build_bin_cube, L.PlanCache.run_sparse
     widest = [0]
 
-    def run_sparse(self, catalog, rel, vals, incoming, preds, out_attrs, stats=None):
+    def run_sparse(self, catalog, rel, vals, incoming, preds, out_attrs, *args, **kwargs):
         rel_set = set(rel.attrs)
         doms = {a: d for m in incoming for a, d in m.domains.items() if a not in rel_set}
         lanes = 1
         for d in doms.values():
             lanes *= d
         widest[0] = max(widest[0], rel.row_bucket * lanes)
-        return real_run(self, catalog, rel, vals, incoming, preds, out_attrs, stats)
+        return real_run(self, catalog, rel, vals, incoming, preds, out_attrs, *args, **kwargs)
 
     def build(self, viz, dim):
         if cuda:
@@ -1894,9 +2001,11 @@ def kernel_audit(torch, K, L, audit: dict, exact: bool):
             if rel > a["max_rel_err"]:
                 a["max_rel_err"], a["rows_at_max_rel"] = rel, at
 
-    def aggregate_op(codes, values, num_segments, op="sum"):
-        out = real_agg(codes, values, num_segments, op)
-        errs = [hold_plain(torch, ref, codes, values, num_segments, op, out, exact,
+    def aggregate_op(codes, values, num_segments, op="sum", ordered=False):
+        out = real_agg(codes, values, num_segments, op, ordered=ordered)
+        aligned = aligned_codes(ops, codes, values.reshape(codes.shape[0], -1), num_segments,
+                                ordered)
+        errs = [hold_plain(torch, ref, aligned, values, num_segments, op, out, exact,
                            f"segment_aggregate {op} N={codes.shape[0]} G={num_segments}")]
         note("segment_aggregate", codes.shape[0], values.shape[-1] if values.dim() > 1 else 1,
              errs)
@@ -1909,9 +2018,9 @@ def kernel_audit(torch, K, L, audit: dict, exact: bool):
         errs = [hold_plain(torch, ref, codes, values, g, op, o, exact,
                            f"level_segment_aggregate {op} member N={codes.shape[0]} G={g} "
                            f"V={values.shape[1]} of {len(items)}")
-                for (codes, values, g), o in zip(items, outs)]
-        note("level_segment_aggregate", sum(c.shape[0] for c, _, _ in items),
-             max(v.shape[1] for _, v, _ in items), errs)
+                for (codes, values, g), o in zip(plain_items(ops, items), outs)]
+        note("level_segment_aggregate", sum(m[0].shape[0] for m in items),
+             max(m[1].shape[1] for m in items), errs)
         return outs
 
     def counted(real):
@@ -2092,6 +2201,7 @@ def explore_phase(torch, np, K, L, schema, report: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     rec = explore_drive(torch, K, L, cat, "cuda")
     launches = rec["launches"]
+    print_regimes(K, "explore")
     print(f"explore: open_session {rec['open_ms']['A']:.1f} ms (leg A), "
           f"{rec['open_ms']['B']:.1f} ms (leg B), peak device memory "
           f"{rec['open_peak_mb']['A']:.1f} / {rec['open_peak_mb']['B']:.1f} MiB; "
@@ -2369,6 +2479,7 @@ def serve_phase(torch, np, K, L, schema, cat, report: dict) -> dict:
         out[label] = row
 
     shared = storm(torch, K, L, cat, "cuda", SERVE_SESSIONS)
+    print_regimes(K, "serve, shared storm")
     serve_check(torch, shared, "serve shared")
     summary(f"shared{SERVE_SESSIONS}", shared)
     distinct = storm(torch, K, L, cat, "cuda", SERVE_SESSIONS, variants=True)
@@ -2702,8 +2813,23 @@ def ml_phase(torch, np, K, M, schema, report: dict) -> dict:
           f"({rec['cal_ms'] / rec['fit_ms']:.2f} x the fit, {rec['cal_computed']} messages); "
           f"peak device memory {rec['peak_mb']:.1f} MiB; launches {launches} "
           f"(drive {drive_s:.1f} s)", flush=True)
-    check(not any(launches.values()),
-          f"ml: the covariance ring launched a kernel {launches} (its plain path has none)")
+    regimes = print_regimes(K, "ml")
+    for name in SEGMENT:
+        check(launches[name] > 0, f"ml: {name} never launched (the covariance ring's segment ⊕)")
+    check(not any(launches[name] for name in CONTRACT), f"ml: a contract kernel launched "
+          f"{launches}")
+    # two fresh fits on the card: the same element and weights, bit for bit
+    fresh = [ml_model(M, cat, "cuda") for _ in range(2)]
+    fits = [m.fit() for m in fresh]
+    elements = [[leaf.cpu() for leaf in m.engine.execute(m._base_query())[0].field]
+                for m in fresh]
+    check(all(torch.equal(a, b) for a, b in zip(*elements))
+          and all(torch.equal(a, b) for a, b in zip(elements[0], rec["element"]))
+          and np.array_equal(fits[0].weights, fits[1].weights),
+          "ml: two fresh fits on the card give other bits")
+    print("ml: two fresh fits on the card give the same element and weights bit for bit",
+          flush=True)
+    del fresh, fits, elements
     by_key: dict = {}
     for c in rec["cands"]:
         by_key.setdefault(c["key"], []).append(c)
@@ -2756,6 +2882,7 @@ def ml_phase(torch, np, K, M, schema, report: dict) -> dict:
     report["ml"] = dict(
         n_sales=n, k=model.k, fit_ms=rec["fit_ms"], calibrate_ms=rec["cal_ms"],
         calibrate_messages=rec["cal_computed"], peak_mb=rec["peak_mb"], launches=launches,
+        regimes=regimes,
         candidates=[{k: v for k, v in c.items() if k not in ("weights", "element")}
                     for c in rec["cands"]], cold=rec["cold"], element_max_rel_err=errs,
         example_fit=example, held_fit=held, cpu_sales=ML_CPU_SALES, cpu_s=cpu_s,
@@ -2841,6 +2968,7 @@ def cube_phase(torch, np, K, L, cat, report: dict) -> dict:
     reset_launches(K)
     reps = cube_drive(torch, L, cat, "cuda")
     launches = read_launches(K)
+    print_regimes(K, "cube")
     peak = torch.cuda.max_memory_allocated() / 2**20
     for name in SEGMENT:
         check(launches[name] > 0, f"cube: {name} never launched")
@@ -2955,6 +3083,7 @@ def unfused_phase(torch, np, K, L, icat, report: dict) -> dict:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches[fuse] = read_launches(K)
+        print_regimes(K, f"unfused phase, fuse_level_kernel={fuse}")
         answers = {v: sess.read(v).factor.field.cpu() for v in sess.spec.names}
         out[fuse] = dict(ms=ms, plans=t.cache_stats()["plans"], answers=answers)
         sess.close()
@@ -3167,6 +3296,7 @@ def sharded_phase(torch, np, K, L, icat, report: dict) -> dict:
         reset_launches(K)
         rec = sharded_drive(torch, np, L, cat, mesh, k, "cuda", tick=k in SHARD_TICK_WIDTHS)
         launches[k].append(read_launches(K))
+        print_regimes(K, f"sharded, {k} shard(s)")
         runs[k].append(rec)
         del cat
         gc.collect()
@@ -3806,6 +3936,7 @@ def train_entry(torch, K, L, LM) -> dict:
             failed = LM.train.main(argv)
         wall = time.perf_counter() - t0
         launches = read_launches(K)
+        print_regimes(K, "train driver")
         plain = LM.train.main(TRAIN_ARGV + ["--ckpt-dir", str(ckpt_root / "plain")])
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)

@@ -837,12 +837,15 @@ class CJTEngine:
         field = sr.field_map(lambda leaf: leaf.reshape(shape + tuple(leaf.shape[1:])), field)
         return Factor(tuple(rel.attrs), field, self.ring)
 
-    def _sparse_bag(self, q, rel: Relation, incoming, preds, out_attrs, stats=None) -> Factor:
-        """Factorized sparse path: gather ⊗ rowwise, segment-⊕ to out_attrs."""
+    def _sparse_bag(self, q, rel: Relation, incoming, preds, out_attrs, stats=None,
+                    code_order: bool = True) -> Factor:
+        """Factorized sparse path: gather ⊗ rowwise, segment-⊕ to out_attrs
+        (``code_order``: see ``PlanCache.run_sparse``)."""
         vals = self._lift(q, rel)  # leaves: (N, *trailing)
         if self.plans is not None:
             return self.plans.run_sparse(
-                self.catalog, rel, vals, incoming, preds, tuple(out_attrs), stats
+                self.catalog, rel, vals, incoming, preds, tuple(out_attrs), stats,
+                code_order=code_order,
             )
         return self._sparse_reference(rel, vals, incoming, preds, out_attrs)
 
@@ -1394,7 +1397,8 @@ class CJTEngine:
         rels, preds = self._bag_rels(q_delta, u), placement.get(u, ())
         full = self._bag_rels(q_new, u)
         if len(full) == 1 and full[0].num_rows > self.dense_rows_threshold:
-            return self._sparse_bag(q_delta, rels[0], incoming, preds, out_attrs)
+            return self._sparse_bag(q_delta, rels[0], incoming, preds, out_attrs,
+                                    code_order=False)
         return self._dense_bag(q_delta, rels, incoming, preds, out_attrs)
 
     def apply_delta(self, q: Query, delta: Delta) -> tuple[Query, DeltaStats]:

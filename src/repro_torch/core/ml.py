@@ -11,9 +11,11 @@ over per-model factorized retraining).
 
 The lifts build (c, s, Q) on the engine's device from the relation's codes
 and measures (a categorical feature is a one-hot block of columns, set by a
-scatter).  The covariance ring's leaves have trailing dims, so its segment
-reductions take the plain torch path in both packages (no segment kernel).
-The normal equations are solved on the host in float64.
+scatter).  The covariance ring's segment reductions go through the segment
+kernels, c, s and Q each flattened into a value slab of its own over the
+message's codes (``core/plans.py``), so a fit's float sums repeat bit for bit on the card
+(the reference reduces them with ``segment_sum``).  The normal equations are
+solved on the host in float64.
 """
 
 from __future__ import annotations

@@ -13,14 +13,26 @@ plan.  PyTorch runs eagerly, so nothing is traced or compiled here.
   ``Catalog.dev_flat_codes``; per-row lifts, σ masks and densified factors
   are cached here, on the cache's device.
 - **Kernel routing.**  The ⊕-segment reduction of every ring whose ⊕ is a
-  kernel op (``kernel_segment_op``), whose fields are float32 and whose
-  leaves have no trailing dims goes to ``segment_ops.aggregate_op`` (one
-  message) or ``segment_ops.level_aggregate`` (one launch for a whole
-  calibration level, or for one batch of sibling absorptions in a
-  crossfilter fan-out, ``run_sparse_batch``).  MOMENTS stacks its three leaves as value columns.
-  On a CUDA device those launch the hand-written kernels, always — there is
-  no cost gate; on the CPU the same wrappers run their plain versions.
-  BOOL, int64 COUNT and covariance reduce with plain torch on both devices.
+  kernel op (``kernel_segment_op``) and whose fields are float32 goes to
+  ``segment_ops.aggregate_op`` (one message) or
+  ``segment_ops.level_aggregate`` (one launch for a whole calibration level,
+  or for one batch of sibling absorptions in a crossfilter fan-out,
+  ``run_sparse_batch``).  A compound ring's leaves are messages of their own
+  over the same codes (MOMENTS three, covariance its c, s and Q, each
+  flattened past its rows).  On a CUDA device those launch the hand-written kernels, always — there is no
+  cost gate; on the CPU the same wrappers run their plain versions.  BOOL
+  and int64 COUNT reduce with plain torch on both devices.
+- **Code-ordered slabs.**  On a CUDA device, a message that the segment
+  kernels reduce segment-major (their sort regime) has its rowwise inputs
+  (the lift's leaves, the gather indices, the σ row codes) permuted once
+  into the cached row order of its segment codes
+  (``segment_ops.in_code_order``), so the gather ⊗ σ writes its slab in
+  code order and the kernel reads it in place, with the bits of the
+  gathered route.  The route is fixed by the
+  plan: rings whose leaves have trailing dims (covariance: 133 floats a row
+  at k = 11) and the row blocks of a contraction past ``ROWWISE_MAX_ELEMS``
+  keep the gathered route, and so do sharded plans and delta messages
+  (``code_order=False``), whose codes are a shard's block or a one-off.
 - **Row sharding.**  With a mesh (``PlanCache(mesh=...)``) and a ring whose
   ⊕ has a collective, sparse, batched and level plans run their unchanged
   local body once per shard on the shard's block of ``row_bucket // k``
@@ -63,8 +75,8 @@ from .factor import Factor, contract
 # reference's static default)
 UNION_BUDGET = 512
 
-# A level launch concatenates its members' rowwise fields (rows × carried γ
-# lanes), padded to the widest.  Past ROWWISE_MAX_ELEMS elements (8 GiB of
+# A level launch holds its members' rowwise fields (rows × carried γ lanes)
+# until it runs.  Past ROWWISE_MAX_ELEMS elements, rows × the widest (8 GiB of
 # float32, a tenth of an 80 GB card: the gathers and products around the
 # operands take a few times more) the level plan splits its members over
 # several level_segment_aggregate launches; a member past it on its own
@@ -290,8 +302,13 @@ class _SparseMeta:
     to route its rowwise output through the fused kernel."""
 
     total: int                       # flattened local-out segment count
-    carried_dims: tuple[int, ...]    # γ-carried dims of the rowwise output
     use_kernel: bool
+    code_order: bool                 # sort-regime slabs come in code order on the card
+    plain_on_cpu: bool               # on the CPU the ring keeps its own segment_reduce
+
+    def kernel_on(self, seg_idx: torch.Tensor) -> bool:
+        """Whether the segment kernels' wrappers reduce this message."""
+        return self.use_kernel and not (self.plain_on_cpu and seg_idx.device.type == "cpu")
 
 
 def _sparse_plan_parts(
@@ -302,10 +319,13 @@ def _sparse_plan_parts(
     pred_attrs: tuple[str, ...],
     out_attrs: tuple[str, ...],
     n: int,
+    code_order: bool = True,
 ) -> tuple[Callable, Callable, Callable, _SparseMeta]:
-    """One contraction as (fn, rowwise, finalize, meta): ``fn`` runs all of
-    it; the level plan runs ``rowwise`` per message, hands the segment
-    reductions of the whole level to one kernel launch, then ``finalize``."""
+    """One contraction as (fn, slab, finalize, meta): ``fn`` runs all of it;
+    the level plan runs ``slab`` (rowwise, then the value slab) per message,
+    hands the segment reductions of the whole level to one kernel launch,
+    then ``finalize``.  ``code_order=False`` keeps every message on the
+    gathered route."""
     rel_set = set(rel_attrs)
     local_out = tuple(a for a in out_attrs if a in rel_set)
     total = int(np.prod([doms[a] for a in local_out])) if local_out else 1
@@ -326,12 +346,14 @@ def _sparse_plan_parts(
     )
 
     op = ring.kernel_segment_op
-    use_kernel = (
-        op is not None
-        and ring.dtype == torch.float32
-        and all(t == 0 for t in ring.trailing)
-        and n > 0
-    )
+    use_kernel = op is not None and ring.dtype == torch.float32 and n > 0
+    # a permuted copy of a lift with trailing dims would cost its whole width
+    # per order: those rings read their wide rows through the row order.  On
+    # the CPU they keep their float32 index_add_ (the reference's
+    # segment_sum): the wrappers' plain version sums in float64, and the
+    # ill-conditioned fits built on covariance sums show the difference
+    trailing = any(ring.trailing)
+    code_order = code_order and use_kernel and not trailing
     out_shape = tuple(doms[a] for a in local_out)
 
     def rowwise(vals, in_fields, in_idx, pred_masks, pred_codes):
@@ -370,19 +392,45 @@ def _sparse_plan_parts(
 
     lanes = int(np.prod(carried_dims)) if carried_dims else 1
 
-    def reduce(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx):
+    def width(vals) -> int:
+        """Columns of the value slab: carried lanes × the lift's elements per
+        row (the rowwise field holds rows × that)."""
+        return lanes * sum(leaf[0].numel() for leaf in sr.leaves(vals))
+
+    def slab(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx, ordered=None):
+        """``(rowwise field, its leaves as (rows, V) value slabs, in code
+        order?)``: in code order when the route allows and the kernels
+        reduce the message segment-major (the inputs permuted once per
+        cached order), else in row order.  ``ordered`` None takes code order
+        on a CUDA device only (the CPU's plain version reads no order),
+        True wherever the route allows, False never."""
+        order = None
+        if code_order and (seg_idx.is_cuda if ordered is None else ordered):
+            # every leaf is its own (rows, lanes) member of the reduction
+            order = seg_ops.code_order(seg_idx, total, lanes)
+        if order is not None:
+            leaves = sr.leaves(vals)
+            perm = seg_ops.in_code_order(seg_idx, order, (*leaves, *in_idx, *pred_codes))
+            vals = sr.like(vals, perm[:len(leaves)])
+            in_idx = perm[len(leaves):len(leaves) + len(in_idx)]
+            pred_codes = perm[len(leaves) + len(in_idx):]
+        rv = rowwise(vals, in_fields, in_idx, pred_masks, pred_codes)
+        return rv, _slab(rv, seg_idx.shape[0]), order is not None
+
+    def reduce(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx, ordered=None):
+        if meta.kernel_on(seg_idx):
+            rv, values, in_order = slab(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx,
+                                        ordered)
+            return _unstack([seg_ops.aggregate_op(seg_idx, x, total, op=op, ordered=in_order)
+                             for x in values], rv, total)
         vals = rowwise(vals, in_fields, in_idx, pred_masks, pred_codes)
-        if use_kernel:
-            return _unstack(seg_ops.aggregate_op(seg_idx, _slab(vals, seg_idx.shape[0]), total,
-                                                 op=op), vals, total, carried_dims)
         return ring.segment_reduce(vals, seg_idx, total)
 
     def fn(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx):
-        # the rowwise field holds rows × carried lanes × the lift's elements
-        # per row: past ROWWISE_MAX_ELEMS, reduce a block of rows at a time
-        # and ⊕ the partial aggregates
-        per_row = lanes * sum(leaf[0].numel() for leaf in sr.leaves(vals))
-        step = max(1, ROWWISE_MAX_ELEMS // max(per_row, 1))
+        # past ROWWISE_MAX_ELEMS rowwise elements, reduce a block of rows at a
+        # time (in row order: a block is no cached codes tensor) and ⊕ the
+        # partial aggregates
+        step = max(1, ROWWISE_MAX_ELEMS // max(width(vals), 1))
         if step >= n:
             return finalize(reduce(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx))
         field = None
@@ -390,32 +438,35 @@ def _sparse_plan_parts(
             rs = slice(lo, min(n, lo + step))
             part = reduce(sr.field_map(lambda leaf: leaf[rs], vals), in_fields,
                           tuple(None if i is None else i[rs] for i in in_idx), pred_masks,
-                          tuple(c[rs] for c in pred_codes), seg_idx[rs])
+                          tuple(c[rs] for c in pred_codes), seg_idx[rs], ordered=False)
             field = part if field is None else ring.add(field, part)
         return finalize(field)
 
-    meta = _SparseMeta(total=total, carried_dims=carried_dims, use_kernel=use_kernel)
-    return fn, rowwise, finalize, meta
+    meta = _SparseMeta(total=total, use_kernel=use_kernel, code_order=code_order,
+                       plain_on_cpu=trailing)
+    return fn, slab, finalize, meta
 
 
-def _slab(vals: sr.Field, n: int) -> torch.Tensor:
-    """Rowwise field → one (n, V) value slab; compound rings (MOMENTS) stack
-    their equal-shape leaves as extra columns so they share ONE segment pass."""
-    ls = [leaf.reshape(n, -1) for leaf in sr.leaves(vals)]
-    return (ls[0] if len(ls) == 1 else torch.cat(ls, dim=1)).contiguous()
+def _slab(vals: sr.Field, n: int) -> list[torch.Tensor]:
+    """Rowwise field → one (n, V) value slab per leaf, each flattened past
+    its rows (carried lanes × trailing dims), a view where the leaf is
+    contiguous: a compound ring's
+    leaves (MOMENTS: three; covariance: c, s and Q) are members of their own
+    over the same codes."""
+    return [leaf.reshape(n, -1).contiguous() for leaf in sr.leaves(vals)]
 
 
-def _unstack(agg: torch.Tensor, like_field: sr.Field, total: int,
-             carried_dims: tuple[int, ...]) -> sr.Field:
-    """Split a reduced (total, V) slab back into the field's leaves."""
-    k = len(sr.leaves(like_field))
-    parts = torch.tensor_split(agg, k, dim=1) if k > 1 else (agg,)
-    return sr.like(like_field, [p.reshape((total,) + carried_dims) for p in parts])
+def _unstack(aggs: Sequence[torch.Tensor], like_field: sr.Field, total: int) -> sr.Field:
+    """The reduced (total, V) slabs, one per leaf, back in the field's
+    leaves' shapes past the rows."""
+    return sr.like(like_field, [agg.reshape((total,) + tuple(leaf.shape[1:]))
+                                for agg, leaf in zip(aggs, sr.leaves(like_field))])
 
 
-def _build_sparse_plan(ring, rel_attrs, doms, in_attrs_list, pred_attrs, out_attrs, n) -> _Plan:
+def _build_sparse_plan(ring, rel_attrs, doms, in_attrs_list, pred_attrs, out_attrs, n,
+                       code_order: bool = True) -> _Plan:
     fn, _, _, meta = _sparse_plan_parts(
-        ring, rel_attrs, doms, in_attrs_list, pred_attrs, out_attrs, n
+        ring, rel_attrs, doms, in_attrs_list, pred_attrs, out_attrs, n, code_order
     )
     return _Plan(fn=fn, uses_kernel=meta.use_kernel)
 
@@ -457,7 +508,8 @@ def _build_sharded_sparse_plan(ring, rel_attrs, doms, in_attrs_list, pred_attrs,
     if n % nshards:
         raise ValueError(f"row bucket {n} not divisible by mesh {nshards}")
     fn_local, _, _, meta = _sparse_plan_parts(
-        ring, rel_attrs, doms, in_attrs_list, pred_attrs, out_attrs, n // nshards
+        ring, rel_attrs, doms, in_attrs_list, pred_attrs, out_attrs, n // nshards,
+        code_order=False,
     )
     collective = dist.ring_collective(ring)
     run = dist.shard_map(fn_local, mesh, in_specs=_sparse_shard_specs(axis))
@@ -552,24 +604,25 @@ def absorb_batch_key(ring: sr.Semiring, item: AbsorbItem) -> tuple:
 # kernel-route messages sharing a single level_aggregate launch
 # ---------------------------------------------------------------------------
 
-def _level_plan_parts(ring: sr.Semiring, group_statics: tuple) -> tuple:
+def _level_plan_parts(ring: sr.Semiring, group_statics: tuple, code_order: bool = True) -> tuple:
     """The level body as ``(lfn, group_kernel, fused_messages)``.
 
     ``group_statics[g]`` is ``(rel_attrs, doms, in_canon, pred_attrs,
     out_canon, n, member_dims)``: canonical placeholders, with each member's
     own placeholder sizes in ``member_dims``.  Members of a group run their
     rowwise stage (gather ⊗ σ) one after another, at their own sizes, so no
-    padding is needed; every kernel-route member of every group then
-    contributes its ``(seg_idx, slab, num_segments)`` to ONE
+    padding is needed (in code order where the sort regime reduces them and
+    ``code_order`` allows); every kernel-route member of every group then
+    contributes a ``(seg_idx, slab, num_segments)`` per leaf to ONE
     ``level_aggregate`` launch — or to several, in member order, when the
-    launch's padded operands would pass ``ROWWISE_MAX_ELEMS``.  Other
-    members ⊕-reduce with plain torch.
+    pending slabs would pass ``ROWWISE_MAX_ELEMS``.  Other members
+    ⊕-reduce with plain torch.
     """
     parts = []
     for (rel_attrs, doms, in_canon, pred_attrs, out_canon, n, member_dims) in group_statics:
         members = [
             _sparse_plan_parts(ring, rel_attrs, {**doms, **md}, in_canon, pred_attrs,
-                               out_canon, n)
+                               out_canon, n, code_order)
             for md in member_dims
         ]
         parts.append((members, members[0][3].use_kernel, n))
@@ -583,31 +636,32 @@ def _level_plan_parts(ring: sr.Semiring, group_statics: tuple) -> tuple:
         rows = width = 0       # their row count and widest slab
 
         def launch():
-            items = [(seg_idx, slab, meta.total) for _, _, _, seg_idx, slab, meta in pending]
-            for (g, b, rv, _, _, meta), agg in zip(pending,
-                                                   seg_ops.level_aggregate(items, op=op)):
+            items = [(seg_idx, x, meta.total, in_order)
+                     for _, _, _, seg_idx, values, in_order, meta in pending for x in values]
+            aggs = iter(seg_ops.level_aggregate(items, op=op))
+            for g, b, rv, _, values, _, meta in pending:
                 finalize = parts[g][0][b][2]
-                results[g][b] = finalize(_unstack(agg, rv, meta.total, meta.carried_dims))
+                results[g][b] = finalize(_unstack([next(aggs) for _ in values], rv, meta.total))
             pending.clear()
 
-        for g, ((members, use_kernel, n), args) in enumerate(zip(parts, groups_args)):
+        for g, ((members, _, n), args) in enumerate(zip(parts, groups_args)):
             vals_list, in_fields_list, in_idx, pred_masks_list, pred_codes, seg_idx = args
-            for b, (fn, rowwise, _, meta) in enumerate(members):
-                if not use_kernel:
+            for b, (fn, slab, _, meta) in enumerate(members):
+                if not meta.kernel_on(seg_idx):
                     results[g][b] = fn(vals_list[b], in_fields_list[b], in_idx,
                                        pred_masks_list[b], pred_codes, seg_idx)
                     continue
-                rv = rowwise(vals_list[b], in_fields_list[b], in_idx,
-                             pred_masks_list[b], pred_codes)
-                slab = _slab(rv, n)
-                # the launch's operands are the members' slabs concatenated and
-                # padded to the widest: past ROWWISE_MAX_ELEMS, launch what is
+                rv, values, in_order = slab(vals_list[b], in_fields_list[b], in_idx,
+                                            pred_masks_list[b], pred_codes, seg_idx)
+                # the pending members' slabs live until their launch: past
+                # ROWWISE_MAX_ELEMS (rows × the widest), launch what is
                 # pending first
-                w = max(width, slab.shape[1])
+                v = sum(x.shape[1] for x in values)
+                w = max(width, v)
                 if pending and (rows + n) * w > ROWWISE_MAX_ELEMS:
                     launch()
-                    rows, w = 0, slab.shape[1]
-                pending.append((g, b, rv, seg_idx, slab, meta))
+                    rows, w = 0, v
+                pending.append((g, b, rv, seg_idx, values, in_order, meta))
                 rows, width = rows + n, w
         if pending:
             launch()
@@ -641,7 +695,8 @@ def _build_sharded_level_plan(ring: sr.Semiring, group_statics: tuple,
             raise ValueError(f"row bucket {n} not divisible by mesh {nshards}")
         local_statics.append((rel_attrs, doms, in_canon, pred_attrs, out_canon,
                               n // nshards, member_dims))
-    lfn, group_kernel, fused_messages = _level_plan_parts(ring, tuple(local_statics))
+    lfn, group_kernel, fused_messages = _level_plan_parts(ring, tuple(local_statics),
+                                                          code_order=False)
     collective = dist.ring_collective(ring)
     per_group = _sparse_shard_specs(axis)
     run = dist.shard_map(lfn, mesh, in_specs=(tuple(per_group for _ in group_statics),))
@@ -778,6 +833,8 @@ class PlanCache:
         return m
 
     def lift_cached(self, key: tuple, compute: Callable[[], sr.Field]) -> sr.Field:
+        """The lift cached under ``key``; its code-ordered copies
+        (``segment_ops.in_code_order``) die with it."""
         v = self._lifts.get(key)
         if v is None:
             v = compute()
@@ -844,11 +901,16 @@ class PlanCache:
         preds: Sequence[Predicate],
         out_attrs: tuple[str, ...],
         stats=None,
+        code_order: bool = True,
     ) -> Factor:
+        """One sparse contraction; ``code_order=False`` keeps its slab in row
+        order (a delta's codes are used once: no order is worth keeping)."""
         shards = self._shard_arity(rel)
         key = self.sparse_key(rel, vals, incoming, preds, out_attrs)
         if shards > 1:
             key = key + (("shards", shards),)
+        elif not code_order:
+            key = key + (("code_order", False),)
         entry = self._plans.get(key)
         built = entry is None
         if built:
@@ -861,7 +923,7 @@ class PlanCache:
             )
             entry = (
                 _build_sharded_sparse_plan(*build_args, self.mesh, self.mesh_axis)
-                if shards > 1 else _build_sparse_plan(*build_args)
+                if shards > 1 else _build_sparse_plan(*build_args, code_order)
             )
             self._plans.put(key, entry)
         rel_set = set(rel.attrs)

@@ -18,7 +18,9 @@ Every ring implements:
 ``has_add_inverse``, ``idempotent_add`` and ``kernel_segment_op`` carry the
 same meaning as in the JAX package: the last names the ⊕ of the
 segment-aggregate kernel ("sum"/"min"/"max"), or None for rings that take the
-plain torch path (BOOL, int64 COUNT, covariance).
+plain torch path (BOOL, int64 COUNT).  The port also gives it to the
+covariance ring (the reference does not): its leaves go to the kernel side
+by side, flattened past their rows (``core/plans.py``).
 """
 
 from __future__ import annotations
@@ -289,6 +291,7 @@ def make_covariance_ring(k: int) -> Semiring:
         zero_values=(0.0, 0.0, 0.0),
         trailing=(0, 1, 2),
         has_add_inverse=True,
+        kernel_segment_op="sum",
     )
 
 

@@ -260,12 +260,13 @@ def contract_args(m: torch.Tensor, r: torch.Tensor, dtypes: tuple) -> Geometry:
 # launch geometry of segment_aggregate and level_segment_aggregate
 # ---------------------------------------------------------------------------
 
-SEG_THREAD, SEG_WARP, SEG_SORT, SEG_MERGE = 0, 1, 2, 3
+SEG_THREAD, SEG_WARP, SEG_SORT, SEG_SORT_ORDERED, SEG_MERGE = 0, 1, 2, 3, 4
 SEG_REGIMES = ("thread", "warp", "sort")
+SEG_GRIDS = 5               # segagg::kGrids: a grid per regime (sort in two forms), then merge
 SEG_WARPS = THREADS // 32
 SEG_THREAD_G = 96           # G of one thread's copy (one column): 256 copies fill 96 KiB
 SEG_THREAD_COLS = 256       # columns of a thread-regime tile: one per thread, at most
-SEG_WARP_CELLS = 1472       # G·V of one warp's copy: 8 copies fill 46 KiB
+SEG_WARP_CELLS = 1472       # G·V of one warp's copy: 8 copies and their code tags fit 94 KiB
 SEG_MIN_ROWS = 2048         # rows per block, at least
 SEG_TARGET_BLOCKS = 1024    # blocks a long message (per column tile) is cut into
 SEG_MERGE_CELLS = 1 << 20   # block partials of one warp-regime message, at most
@@ -309,8 +310,8 @@ def segment_geometry(n: int, g: int, v: int) -> SegGeometry:
     if g <= SEG_THREAD_G:
         regime, vt, smem = SEG_THREAD, min(v, SEG_THREAD_COLS), 4 * THREADS * g
         cap = SEG_TARGET_BLOCKS
-    elif g * v <= SEG_WARP_CELLS:
-        regime, vt, smem = SEG_WARP, v, 4 * SEG_WARPS * g * v
+    elif g * v <= SEG_WARP_CELLS:  # a copy of the cells and a lane mask per code, per warp
+        regime, vt, smem = SEG_WARP, v, 4 * SEG_WARPS * g * (v + 1)
         cap = max(1, min(SEG_TARGET_BLOCKS, SEG_MERGE_CELLS // (g * v)))
     else:  # more cells than a warp's copy holds: segment-major
         return SegGeometry(SEG_SORT, v, 1, max(32, SEG_PIECE_ELEMS // v), 0, 0, 0, 0)
@@ -346,13 +347,14 @@ class SegMember(ctypes.Structure):
 
 class SegTable(ctypes.Structure):
     """``struct segagg::Table``: the kernel's by-value parameter.  Members
-    are grouped by regime; per regime (thread, warp, sort, then the merge
-    grid over all members), the index of its first member, its member
-    count, grid and dynamic shared memory."""
+    are grouped by regime; per regime (thread, warp, sort through the row
+    order, sort in code order, then the merge grid over all members), the
+    index of its first member, its member count, grid and dynamic shared
+    memory."""
 
     _fields_ = [("count", ctypes.c_int), ("pad", ctypes.c_int),
-                ("first", ctypes.c_int * 4), ("members", ctypes.c_int * 4),
-                ("grid", ctypes.c_int * 4), ("smem", ctypes.c_int * 4),
+                ("first", ctypes.c_int * SEG_GRIDS), ("members", ctypes.c_int * SEG_GRIDS),
+                ("grid", ctypes.c_int * SEG_GRIDS), ("smem", ctypes.c_int * SEG_GRIDS),
                 ("m", SegMember * SEG_MAX_MEMBERS)]
 
 
@@ -372,20 +374,26 @@ class SegLaunch:
 def pack_members(members) -> list[SegLaunch]:
     """Lay messages out in member tables, at most ``SEG_MAX_MEMBERS`` per
     launch, in order.  Each member is ``(geom, index_ptr, values_ptr,
-    out_ptr, items_ptr, n, g, v, n_items, n_splits)`` with the geometry
-    of :func:`segment_geometry` (or :func:`sort_launch`).  In a table the
-    members are grouped by regime (stably: each regime runs as one grid); a
-    member gets its regime's next blocks, the next stretch of the workspace
-    and the merge grid's next warps, and nothing else of it depends on the
-    others."""
+    out_ptr, items_ptr, n, g, v, n_items, n_splits, ordered)`` with the
+    geometry of :func:`segment_geometry` (or :func:`sort_launch`);
+    ``ordered`` (sort only, with no index) marks values that arrive in code
+    order: that member runs in the grid ``SEG_SORT_ORDERED``.  In a table
+    the members are grouped by grid (stably: each grid runs once); a member
+    gets its grid's next blocks, the next stretch of the workspace and the
+    merge grid's next warps, and nothing else of it depends on the others."""
+    def grid_of(member) -> int:
+        return SEG_SORT_ORDERED if member[-1] else member[0].regime
+
     launches = []
     for lo in range(0, len(members), SEG_MAX_MEMBERS):
-        group = sorted(members[lo: lo + SEG_MAX_MEMBERS], key=lambda m: m[0].regime)
+        group = sorted(members[lo: lo + SEG_MAX_MEMBERS], key=grid_of)
         table = SegTable(count=len(group))
-        blocks, smem, count = [0, 0, 0, 0], [0, 0, 0, 0], [0, 0, 0, len(group)]
+        blocks, smem = [0] * SEG_GRIDS, [0] * SEG_GRIDS
+        count = [0] * (SEG_GRIDS - 1) + [len(group)]
         ws = merge = 0
-        for j, (geom, index, values, out, items, n, g, v, n_items, n_splits) in enumerate(group):
-            r = geom.regime
+        for j, member in enumerate(group):
+            geom, index, values, out, items, n, g, v, n_items, n_splits, _ = member
+            r = grid_of(member)
             table.m[j] = SegMember(
                 index=index, values=values, out=out, items=items, n=n, chunk=geom.chunk, ws=ws,
                 g=g, v=v, regime=r, vt=geom.vt, tiles=geom.tiles, blocks=geom.blocks,
@@ -398,7 +406,7 @@ def pack_members(members) -> list[SegLaunch]:
         blocks[SEG_MERGE] = _cdiv(merge, SEG_WARPS)
         if max(blocks) > _INT32_MAX or merge > _INT32_MAX:
             raise ValueError(f"a segment launch of {max(blocks)} blocks exceeds the grid")
-        table.first[:] = [0, count[0], count[0] + count[1], 0]
+        table.first[:] = [sum(count[:r]) for r in range(SEG_GRIDS - 1)] + [0]
         table.members[:], table.grid[:], table.smem[:] = count, blocks, smem
         launches.append(SegLaunch(table, sum(blocks), max(smem), ws))
     return launches

@@ -18,10 +18,10 @@ segment_aggregate_kernel(const __grid_constant__ segagg::Table t, float* ws) {
 
 template <int OP, int R>
 static cudaError_t launch(const segagg::Table& t, float* ws, cudaStream_t s) {
-  if constexpr (R == segagg::kThread) {  // copies of more than 48 KiB: opt in, once
+  if constexpr (R == segagg::kThread || R == segagg::kWarp) {  // past 48 KiB: opt in, once
     static const cudaError_t opted = cudaFuncSetAttribute(
         segment_aggregate_kernel<OP, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        segagg::kThreadSmemMax);
+        segagg::kBigSmemMax);
     if (opted != cudaSuccess) return opted;
   }
   return segagg::launch_regime(segment_aggregate_kernel<OP, R>, t, R, ws, s);
@@ -33,6 +33,7 @@ static cudaError_t run(const segagg::Table& t, float* ws, cudaStream_t s) {
   cudaError_t err = launch<OP, segagg::kThread>(t, ws, s);
   if (err == cudaSuccess) err = launch<OP, segagg::kWarp>(t, ws, s);
   if (err == cudaSuccess) err = launch<OP, segagg::kSort>(t, ws, s);
+  if (err == cudaSuccess) err = launch<OP, segagg::kSortOrdered>(t, ws, s);
   if (err == cudaSuccess) err = launch<OP, segagg::kMerge>(t, ws, s);
   return err;
 }

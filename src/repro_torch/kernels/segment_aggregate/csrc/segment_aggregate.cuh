@@ -25,8 +25,11 @@
 // with code g in an order fixed by the member's (codes, values) alone, so
 // its bits are the same across launches, streams and graph replays, on any
 // SM count, and whether the message goes alone or as member j of a level
-// launch with any other members.  The order, by regime (B is the member's
-// block count, a function of N, G and V):
+// launch with any other members.  A sort-regime member whose values arrive
+// in code order (grid kSortOrdered: row i of values is row perm[i] of the
+// message, perm its stable row order) gives the same bits as the same
+// message read through its row order (kSort).  The order, by regime (B is
+// the member's block count, a function of N, G and V):
 //
 // - thread (G ≤ 96).  Columns are cut into tiles of at most 256, each run
 //   by B blocks; every thread keeps a private copy of the G cells of one
@@ -42,17 +45,27 @@
 //   copy of the cells per warp in shared memory.  A batch is 32 / p rows × p
 //   columns (p the power of two ≥ V), lane l on row l / p and column l % p;
 //   warp w of block b takes the batches b·8 + w + k·B·8, k = 0, 1, …, in
-//   order.  Lane l owns the cells ≡ l (mod 32) of the warp's copy: each
-//   element of a batch is routed to the lane that owns its cell (ballots over
-//   the cell's low five bits), and that lane adds the elements routed to it
-//   in lane order.  The 8 copies combine in warp order.
+//   order (the next 8 batches load while these are added).  Within a
+//   batch a cell's elements are added in lane order: the
+//   lanes on column 0 set their bit in a per-warp tag of their row's code,
+//   so each lane reads its peers (the lanes of its column whose row has its
+//   code) and its rank among them; round r adds every element of rank r,
+//   one per cell, so no two lanes of a round share a cell.  The rounds are
+//   as many as the batch's largest peer group (1 when its codes differ).
+//   The 8 copies combine in warp order.
 // - sort (every other message): segment-major, as the TPU kernel reduces.
 //   A stable order of the rows by code (a permutation, built once per codes
 //   tensor in Python and cached: ops.py::row_order) cuts each segment's rows
 //   into pieces of `chunk` rows; a warp reduces one piece, lane (r, c)
 //   taking rows r, r + R, … of its columns in row order (one column, or four
 //   when V is a multiple of 4; R = 32 / the lanes a row needs, a power of
-//   two), then a fixed xor-shuffle tree over the lanes of one column.
+//   two), then a fixed xor-shuffle tree over the lanes of one column.  A
+//   member reads row perm[i] of its values for position i of the order, or
+//   row i itself when its values arrive in code order (the plan layer
+//   permutes its rowwise inputs once per cached order: core/plans.py), so
+//   the two forms add the same values in the same order.  The two forms run
+//   as two grids (kSort, kSortOrdered), each with the registers its loads
+//   need.
 //
 // A thread or warp member of more than one block writes each block's
 // partials to the workspace, and so does a sort member for each piece of a
@@ -69,8 +82,11 @@
 // Bound: memory.  Each member reads N·4 bytes of codes and N·V·4 bytes of
 // values and writes G·V·4 bytes, so on an H100 (3.35 TB/s) it takes at least
 // (N·(4 + 4V) + G·V·4) / 3.35e12 seconds.  The sort regime reads the
-// permutation instead of the codes and gathers each row's values through it:
-// at V = 1 a 4-byte value can cost a 32-byte sector.
+// permutation instead of the codes and gathers each row's values through it
+// (at V = 1 a 4-byte value can cost a 32-byte sector); in code order it
+// reads the values in place and neither codes nor permutation.  The warp
+// regime's shared-memory traffic (a tag and a cell per element, at random
+// banks) is what it spends beyond the bytes.
 
 #pragma once
 
@@ -79,24 +95,27 @@
 namespace segagg {
 
 enum Op { kSum = 0, kMin = 1, kMax = 2 };
-enum Regime { kThread = 0, kWarp = 1, kSort = 2, kMerge = 3 };
+enum Regime { kThread = 0, kWarp = 1, kSort = 2, kSortOrdered = 3, kMerge = 4 };
+constexpr int kGrids = 5;          // the regimes' grids, then the merge grid
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSmemMax = 46 * 1024;  // dynamic shared memory of one block
-constexpr int kThreadSmemMax = 96 * 1024;  // ... of a thread-regime block (opted in past 48 KiB)
+constexpr int kBigSmemMax = 96 * 1024;  // ... of a thread or warp block (opted in past 48 KiB)
 constexpr int kMaxMembers = 40;     // the member table stays under 4 KiB of kernel parameters
 constexpr int kQuads = 2;           // thread regime, one column: 4-row quads in flight per thread
 constexpr int kUnroll = 4;          // loads in flight per thread before they are ⊕-ed in order
-constexpr int kSortUnroll = 8;      // ... in the sort regime (loads through the permutation)
+constexpr int kWarpUnroll = 8;      // ... in the warp regime (the next ones load meanwhile)
+constexpr int kSortUnroll = 8;      // ... in the sort regime
 constexpr int kItemFields = 5;      // sort work item: segment, begin, end, slot, split
 constexpr int kSplitFields = 3;     // sort split segment: first slot, pieces, segment
 constexpr unsigned kFull = 0xffffffffu;
 
 // field order of class SegMember in repro_torch/kernels/launch.py
 struct Member {
-  const int* index;      // codes (thread, warp) or the row order's permutation (sort)
-  const float* values;   // (n, v) row-major
+  const int* index;      // codes (thread, warp), the row order's permutation (sort), or null
+                         // (sort in code order)
+  const float* values;   // (n, v) row-major; in the row order's order (sort in code order)
   float* out;            // (g, v) row-major, filled with the ⊕-identity
   const int* items;      // sort: n_items work items, then a (first slot, pieces, segment)
                          // triple per split segment
@@ -113,16 +132,16 @@ struct Member {
   int n_splits;          // sort: segments of more than one piece
 };
 
-// Members are grouped by regime; per regime (and for the merge grid, whose
-// members are all of them) the index of its first member, its member count,
-// grid and dynamic shared memory.
+// Members are grouped by regime (the sort regime by form); per regime (and
+// for the merge grid, whose members are all of them) the index of its first
+// member, its member count, grid and dynamic shared memory.
 struct Table {
   int count;
   int pad;
-  int first[4];
-  int members[4];
-  int grid[4];
-  int smem[4];
+  int first[kGrids];
+  int members[kGrids];
+  int grid[kGrids];
+  int smem[kGrids];
   Member m[kMaxMembers];
 };
 
@@ -300,59 +319,73 @@ __device__ void thread_block(const Member& m, int bt, float* ws) {
   }
 }
 
-// warp: a private copy of the G·V cells per warp.  Lane l owns the cells
-// ≡ l (mod 32) of the copy (so the lanes never share a cell or a bank):
-// each element of a batch is routed to the lane that owns its cell, and a
-// lane adds the elements routed to it in lane order.
+// warp: a private copy of the G·V cells per warp, and a lane mask per code
+// (`tag`).  A batch's elements of one cell are added in lane order by
+// rounds: round r adds each lane whose rank among its peers is r.
 template <int OP>
 __device__ void warp_block(const Member& m, int b, float* ws) {
   extern __shared__ float copies[];
   const int g = m.g, v = m.v;
   const int cells = g * v;
+  unsigned* tags = reinterpret_cast<unsigned*>(copies + kWarps * cells);
   for (int i = threadIdx.x; i < kWarps * cells; i += kThreads) copies[i] = identity<OP>();
+  for (int i = threadIdx.x; i < kWarps * g; i += kThreads) tags[i] = 0u;
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* mine = copies + warp * cells;
+  unsigned* tag = tags + warp * g;
   int p = 1;
   while (p < v) p <<= 1;                       // V ≤ 1472 / 97 < 32
   const int rows = 32 / p;                     // rows per batch
   const int rsub = lane / p, col = lane % p;
+  const unsigned lower = (1u << lane) - 1u;    // the lanes before this one
   const long long groups = (m.n + rows - 1) / rows;
   const long long tw = static_cast<long long>(m.blocks) * kWarps;
-  // every lane runs the same number of steps: the warp's batches
-  for (long long r0 = static_cast<long long>(b) * kWarps + warp; r0 < groups; r0 += tw * kUnroll) {
-    int key[kUnroll];
-    float x[kUnroll];
+  const long long step = tw * kWarpUnroll;
+  // code (-1: no element: past the rows, past V or outside [0, G)) and value
+  // of the kWarpUnroll batches in hand; the next ones load while these are added
+  int code[kWarpUnroll], next_code[kWarpUnroll];
+  float x[kWarpUnroll], next_x[kWarpUnroll];
+  auto load = [&](long long first, int (&c)[kWarpUnroll], float (&y)[kWarpUnroll]) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long row = (r0 + u * tw) * rows + rsub;
-      key[u] = -1;
-      x[u] = identity<OP>();
+    for (int u = 0; u < kWarpUnroll; ++u) {
+      const long long row = (first + u * tw) * rows + rsub;
+      c[u] = -1;
+      y[u] = identity<OP>();
       if (row < m.n && col < v) {
-        const int code = __ldg(m.index + row);
-        x[u] = __ldg(m.values + row * v + col);
-        if (code >= 0 && code < g) key[u] = code * v + col;
+        const int k = __ldg(m.index + row);
+        y[u] = __ldg(m.values + row * v + col);
+        if (k >= 0 && k < g) c[u] = k;
+      }
+    }
+  };
+  // every lane runs the same number of steps: the warp's batches
+  long long r0 = static_cast<long long>(b) * kWarps + warp;
+  load(r0, code, x);
+  for (; r0 < groups; r0 += step) {
+    load(r0 + step, next_code, next_x);
+#pragma unroll
+    for (int u = 0; u < kWarpUnroll; ++u) {
+      const int k = code[u];
+      // the rows of this batch with code k set their column-0 lane's bit;
+      // shifted to this lane's column, the bits are its peers
+      if (k >= 0 && col == 0) atomicOr(tag + k, 1u << lane);
+      __syncwarp();
+      const unsigned peers = k >= 0 ? tag[k] << col : 0u;
+      __syncwarp();
+      if (k >= 0 && col == 0) tag[k] = 0u;
+      const int rank = __popc(peers & lower);
+      const int rounds = __reduce_max_sync(kFull, __popc(peers));
+      for (int r = 0; r < rounds; ++r) {
+        if (k >= 0 && rank == r) {
+          float* a = mine + k * v + col;
+          *a = combine<OP>(*a, x[u]);
+        }
+        __syncwarp();
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      // the lanes whose element this lane owns: their key ≡ lane (mod 32)
-      unsigned mask = __ballot_sync(kFull, key[u] >= 0);
-#pragma unroll
-      for (int bit = 0; bit < 5; ++bit) {
-        const unsigned ones = __ballot_sync(kFull, key[u] >> bit & 1);
-        mask &= lane >> bit & 1 ? ones : ~ones;
-      }
-      const int turns = __reduce_max_sync(kFull, __popc(mask));
-      for (int k = 0; k < turns; ++k) {
-        const bool has = mask != 0;
-        const int src = has ? __ffs(mask) - 1 : lane;
-        mask &= mask - 1;
-        const int kk = __shfl_sync(kFull, key[u], src);
-        const float xx = __shfl_sync(kFull, x[u], src);
-        if (has) mine[kk] = combine<OP>(mine[kk], xx);
-      }
-    }
+    for (int u = 0; u < kWarpUnroll; ++u) code[u] = next_code[u], x[u] = next_x[u];
   }
   __syncthreads();
   for (int cell = threadIdx.x; cell < cells; cell += kThreads) {
@@ -389,7 +422,7 @@ __device__ __forceinline__ float merge_parts(const float* p, long long stride, i
 template <int OP>
 __device__ void merge_warp(const Member& m, long long w, const float* ws) {
   const int lane = threadIdx.x & 31;
-  if (m.regime == kSort) {
+  if (m.regime == kSort || m.regime == kSortOrdered) {
     const int split = static_cast<int>(w / m.v), c = static_cast<int>(w % m.v);
     const int* sp = m.items + static_cast<long long>(m.n_items) * kItemFields +
                     static_cast<long long>(split) * kSplitFields;
@@ -410,11 +443,12 @@ __device__ void merge_warp(const Member& m, long long w, const float* ws) {
 // sort: one warp per piece of a segment's rows, in row order
 // ---------------------------------------------------------------------------
 
-// ⊕ over rows [begin, end) of the permutation of W columns per lane from
-// column cb + W · (lane % vp) on (W = 4 when V is a multiple of 4, read as
-// one 16-byte load where the address allows: the order is the same either
+// ⊕ over positions [begin, end) of the row order (row perm[i] of values, or
+// row i when the values arrive in code order: ORDERED) of W columns per lane
+// from column cb + W · (lane % vp) on (W = 4 when V is a multiple of 4, read
+// as one 16-byte load where the address allows: the order is the same either
 // way); lanes of one column class end with the same bits.
-template <int OP, int W>
+template <int OP, int W, bool ORDERED>
 __device__ __forceinline__ void piece_sum(const Member& m, int begin, int end, int cb, int vp,
                                           int lane, float (&acc)[W]) {
   const int c = cb + W * (lane % vp);
@@ -431,7 +465,8 @@ __device__ __forceinline__ void piece_sum(const Member& m, int begin, int end, i
 #pragma unroll
         for (int w = 0; w < W; ++w) x[u][w] = identity<OP>();
         if (ru < end) {
-          const float* src = m.values + static_cast<long long>(__ldg(m.index + ru)) * m.v + c;
+          const long long row = ORDERED ? ru : __ldg(m.index + ru);
+          const float* src = m.values + row * m.v + c;
           if (W == 4 && vec) {
             const float4 q = __ldg(reinterpret_cast<const float4*>(src));
             x[u][0] = q.x;
@@ -455,7 +490,7 @@ __device__ __forceinline__ void piece_sum(const Member& m, int begin, int end, i
   for (int w = 0; w < W; ++w) acc[w] = xor_tree<OP>(acc[w], vp);
 }
 
-template <int OP, int W>
+template <int OP, int W, bool ORDERED>
 __device__ void sort_item(const Member& m, const int* item, float* ws) {
   const int lane = threadIdx.x & 31;
   const int seg = item[0], begin = item[1], end = item[2], slot = item[3];
@@ -467,7 +502,7 @@ __device__ void sort_item(const Member& m, const int* item, float* ws) {
                         : ws + m.ws + static_cast<long long>(slot) * m.v;
   for (int cb = 0; cb < m.v; cb += 32 * W) {
     float s[W];
-    piece_sum<OP, W>(m, begin, end, cb, vp, lane, s);
+    piece_sum<OP, W, ORDERED>(m, begin, end, cb, vp, lane, s);
     const int c = cb + W * (lane % vp);
     if (lane < vp && c < m.v) {
 #pragma unroll
@@ -476,15 +511,15 @@ __device__ void sort_item(const Member& m, const int* item, float* ws) {
   }
 }
 
-template <int OP>
+template <int OP, bool ORDERED>
 __device__ void sort_block(const Member& m, int b, float* ws) {
   const int it = b * kWarps + (threadIdx.x >> 5);
   if (it >= m.n_items) return;
   const int* item = m.items + static_cast<long long>(it) * kItemFields;
   if (m.v % 4 == 0) {
-    sort_item<OP, 4>(m, item, ws);
+    sort_item<OP, 4, ORDERED>(m, item, ws);
   } else {
-    sort_item<OP, 1>(m, item, ws);
+    sort_item<OP, 1, ORDERED>(m, item, ws);
   }
 }
 
@@ -494,7 +529,9 @@ __device__ void sort_block(const Member& m, int b, float* ws) {
 
 // a member's warps in the merge grid
 __host__ __device__ inline long long merge_warps(const Member& m) {
-  if (m.regime == kSort) return static_cast<long long>(m.n_splits) * m.v;
+  if (m.regime == kSort || m.regime == kSortOrdered) {
+    return static_cast<long long>(m.n_splits) * m.v;
+  }
   return m.blocks > 1 ? static_cast<long long>(m.tiles) * m.g * m.vt : 0;
 }
 
@@ -516,7 +553,7 @@ __device__ __forceinline__ void aggregate_members(const Table& t, float* ws) {
     } else if constexpr (R == kWarp) {
       warp_block<OP>(m, b, ws);
     } else {
-      sort_block<OP>(m, b, ws);
+      sort_block<OP, R == kSortOrdered>(m, b, ws);
     }
   }
 }
@@ -535,21 +572,22 @@ inline bool table_ok(const Table& t, const void* ws) {
   if (t.count < 1 || t.count > kMaxMembers) return false;
   int next = 0;
   long long merge = 0;
-  for (int r = kThread; r <= kSort; ++r) {
+  for (int r = kThread; r <= kSortOrdered; ++r) {
     if (t.first[r] != next || t.members[r] < 0) return false;
     next += t.members[r];
     if (t.members[r] == 0) continue;
     if (t.grid[r] < 1 || t.smem[r] < 0) return false;
-    if (t.smem[r] > (r == kThread ? kThreadSmemMax : kSmemMax)) return false;
+    if (t.smem[r] > (r >= kSort ? kSmemMax : kBigSmemMax)) return false;
     int block = 0;
     for (int j = t.first[r]; j < next; ++j) {
       const Member& m = t.m[j];
       if (m.regime != r || m.n <= 0 || m.g <= 0 || m.v <= 0 || m.blocks <= 0) return false;
+      if ((m.index == nullptr) != (r == kSortOrdered)) return false;
       if (r == kThread && m.g * kThreads * 4 > t.smem[r]) return false;
-      if (r == kWarp && (m.v > 32 || m.vt != m.v || m.g * m.v * kWarps * 4 > t.smem[r])) {
+      if (r == kWarp && (m.v > 32 || m.vt != m.v || m.g * (m.v + 1) * kWarps * 4 > t.smem[r])) {
         return false;
       }
-      if (r == kSort && (m.items == nullptr || m.n_items > m.blocks * kWarps)) return false;
+      if (r >= kSort && (m.items == nullptr || m.n_items > m.blocks * kWarps)) return false;
       if (m.aux != merge || m.first_block != block) return false;
       merge += merge_warps(m);
       block += m.blocks * m.tiles;

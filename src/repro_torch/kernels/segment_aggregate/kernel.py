@@ -41,25 +41,28 @@ def launch(name: str, members: list, op: str) -> int:
     device; return the launches made (one per ``launch.SEG_MAX_MEMBERS``
     members).
 
-    Each member is ``(codes, values, out, geom, order)``: contiguous CUDA
-    tensors of one device, ``codes`` (N,) int32, ``values`` (N, V) float32,
-    ``out`` (G, V) float32 holding the ⊕-identity, ``geom`` its
-    ``launch.segment_geometry(N, G, V)`` and ``order`` its row order
-    (``ops.row_order``) when that geometry is the sort regime, else None.
-    The caller checks all of that.  Raises if a launch is refused.
+    Each member is ``(codes, values, out, geom, order, ordered)``:
+    contiguous CUDA tensors of one device, ``codes`` (N,) int32, ``values``
+    (N, V) float32, ``out`` (G, V) float32 holding the ⊕-identity, ``geom``
+    its ``launch.segment_geometry(N, G, V)``, ``order`` its row order
+    (``ops.row_order``) when that geometry is the sort regime, else None,
+    and ``ordered`` whether ``values`` arrive in that order (sort only: the
+    kernel then reads them in place).  The caller checks all of that.
+    Raises if a launch is refused.
     """
     packed = []
-    for codes, values, out, geom, order in members:
+    for codes, values, out, geom, order, ordered in members:
         (n, v), g = values.shape, out.shape[0]
         if geom.regime == _launch.SEG_SORT:
             geom = _launch.sort_launch(geom, v, order.n_items, order.n_slots, order.n_splits)
             if not geom.blocks:  # no row has a code in [0, G): out keeps the identity
                 continue
-            packed.append((geom, order.perm.data_ptr(), values.data_ptr(), out.data_ptr(),
-                           order.table.data_ptr(), n, g, v, order.n_items, order.n_splits))
+            packed.append((geom, None if ordered else order.perm.data_ptr(), values.data_ptr(),
+                           out.data_ptr(), order.table.data_ptr(), n, g, v, order.n_items,
+                           order.n_splits, ordered))
         else:
             packed.append((geom, codes.data_ptr(), values.data_ptr(), out.data_ptr(), None,
-                           n, g, v, 0, 0))
+                           n, g, v, 0, 0, False))
     if not packed:
         return 0
     device = members[0][0].device

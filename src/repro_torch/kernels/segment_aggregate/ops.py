@@ -16,6 +16,14 @@ version and output attributes (``Catalog.dev_flat_codes``), so each order is
 built once per version, and once per shard row block (a view of the cached
 codes) on a sharded plan.
 
+Such a message's values can also arrive in code order (``ordered=True``:
+row i is row ``perm[i]`` of the message): the kernel then reads them in
+place, and the bits are those of the same message read through its order.
+The plan layer gets them so by permuting its rowwise inputs once per cached
+order (:func:`code_order`, :func:`in_code_order`, each copy kept while both
+the codes and the input live), so its gather ⊗ σ writes the slab in code
+order.  A lift's copies die with the lift, when the plan cache drops it.
+
 Sharded composition: both :func:`aggregate_op` and :func:`level_aggregate`
 are *shard-local* — under ``repro_torch.core.distributed.shard_map`` they
 see the shard's row block (codes and value slab sliced on the leading
@@ -41,15 +49,20 @@ from .ref import IDENTITY, level_segment_aggregate_ref, segment_aggregate_ref
 
 # kernel launches since the last reset_launches(), by kernel name
 LAUNCHES = {"segment_aggregate": 0, "level_segment_aggregate": 0}
-# row orders built (row_order calls made by cached_row_order) since import
-ORDER_BUILDS = {"orders": 0}
+# messages those launches reduced, by regime (the sort regime by form: read
+# through the row order, or in code order)
+MEMBERS = {"thread": 0, "warp": 0, "sort": 0, "sort_ordered": 0}
+# row orders built (row_order calls made by cached_row_order) and inputs
+# copied into code order (by in_code_order) since import
+ORDER_BUILDS = {"orders": 0, "copies": 0}
 
 _INT32_MAX = 2**31 - 1
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, MEMBERS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _checked_out(codes: torch.Tensor, values: torch.Tensor, num_segments: int,
@@ -128,14 +141,41 @@ def row_order(codes: torch.Tensor, num_segments: int, piece: int) -> RowOrder:
                     n_items=n_items, n_splits=n_splits, n_slots=n_slots, piece=piece)
 
 
-# id(codes' base tensor) -> (weak reference to it, {view key: RowOrder})
-_ORDERS: dict[int, tuple[weakref.ref, dict]] = {}
+@dataclasses.dataclass
+class _Codes:
+    """What is kept for one codes tensor (the base of the views handed in):
+    its row orders by (view, G, piece) and its inputs' code-ordered copies
+    by (view, input)."""
+
+    ref: weakref.ref
+    orders: dict = dataclasses.field(default_factory=dict)
+    copies: dict = dataclasses.field(default_factory=dict)
+
+
+# id(codes' base tensor) -> _Codes
+_ORDERS: dict[int, _Codes] = {}
 
 
 def _forget(key: int, ref: weakref.ref) -> None:
     entry = _ORDERS.get(key)
-    if entry is not None and entry[0] is ref:
+    if entry is not None and entry.ref is ref:
         del _ORDERS[key]
+
+
+def _drop_copy(copies: dict, key: tuple, ref: weakref.ref) -> None:
+    hit = copies.get(key)
+    if hit is not None and hit[0] is ref:
+        del copies[key]
+
+
+def _entry(codes: torch.Tensor) -> tuple[_Codes, tuple]:
+    """The kept entry of ``codes``' base tensor and the view's key."""
+    base = codes if codes._base is None else codes._base
+    entry = _ORDERS.get(id(base))
+    if entry is None or entry.ref() is not base:
+        entry = _Codes(weakref.ref(base, functools.partial(_forget, id(base))))
+        _ORDERS[id(base)] = entry
+    return entry, (codes.storage_offset(), tuple(codes.shape))
 
 
 def cached_row_order(codes: torch.Tensor, num_segments: int, piece: int) -> RowOrder:
@@ -144,50 +184,103 @@ def cached_row_order(codes: torch.Tensor, num_segments: int, piece: int) -> RowO
     view's offset and shape and the tensor's version counter.  A new
     relation version comes with a new codes tensor, so its order is built
     anew."""
-    base = codes if codes._base is None else codes._base
-    entry = _ORDERS.get(id(base))
-    if entry is None or entry[0]() is not base:
-        entry = (weakref.ref(base, functools.partial(_forget, id(base))), {})
-        _ORDERS[id(base)] = entry
-    orders = entry[1]
-    key = (codes.storage_offset(), tuple(codes.shape), num_segments, piece)
-    order, version = orders.get(key, (None, None))
+    entry, view = _entry(codes)
+    key = view + (num_segments, piece)
+    order, version = entry.orders.get(key, (None, None))
     if order is None or version != codes._version:
         order = row_order(codes, num_segments, piece)
         ORDER_BUILDS["orders"] += 1
-        orders[key] = order, codes._version
+        entry.orders[key] = order, codes._version
     return order
 
 
+def code_order(codes: torch.Tensor, num_segments: int, v: int) -> RowOrder | None:
+    """The (cached) row order that the sort regime reads for a message of
+    ``codes`` (N,) into (``num_segments``, ``v``), or None when
+    ``launch.segment_geometry`` puts that message in another regime."""
+    geom = _launch.segment_geometry(codes.shape[0], num_segments, v)
+    if geom.regime != _launch.SEG_SORT:
+        return None
+    return cached_row_order(codes, num_segments, geom.chunk)
+
+
+def in_code_order(codes: torch.Tensor, order: RowOrder, tensors) -> tuple:
+    """Each of ``tensors`` (N leading rows, or None) in ``order``, the row
+    order of ``codes``: ``t[order.perm]``.  A copy is kept while ``codes``
+    and ``t`` live and neither is written to, so a plan that reruns on the
+    same relation version and lift copies nothing."""
+    entry, view = _entry(codes)
+    out = []
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        key = view + (id(t),)
+        ref, versions, copy = entry.copies.get(key, (None, None, None))
+        if ref is None or ref() is not t or versions != (t._version, codes._version):
+            copy = t.index_select(0, order.perm)
+            ORDER_BUILDS["copies"] += 1
+            ref = weakref.ref(t, functools.partial(_drop_copy, entry.copies, key))
+            entry.copies[key] = ref, (t._version, codes._version), copy
+        out.append(copy)
+    return tuple(out)
+
+
+def cached_bytes() -> dict:
+    """Device bytes of the row orders and code-ordered copies kept now."""
+    orders = sum(order.nbytes for e in _ORDERS.values() for order, _ in e.orders.values())
+    copies = sum(c.numel() * c.element_size() for e in _ORDERS.values()
+                 for _, _, c in e.copies.values())
+    return {"orders": orders, "copies": copies}
+
+
 def _launch_members(name: str, items: list, op: str) -> None:
-    """Launch kernel ``name`` over checked ``(codes, values, out)`` CUDA
-    messages and count its launches."""
+    """Launch kernel ``name`` over checked ``(codes, values, out, ordered)``
+    CUDA messages and count its launches and messages."""
     members = []
-    for codes, values, out in items:
+    for codes, values, out, ordered in items:
         (n, v), g = values.shape, out.shape[0]
         geom = _launch.segment_geometry(n, g, v)
-        order = (cached_row_order(codes, g, geom.chunk)
-                 if geom.regime == _launch.SEG_SORT else None)
-        members.append((codes, values, out, geom, order))
+        sort = geom.regime == _launch.SEG_SORT
+        if ordered and not sort:
+            raise ValueError(f"values in code order need the sort regime; N={n} G={g} V={v} "
+                             f"is the {geom.name} regime")
+        order = cached_row_order(codes, g, geom.chunk) if sort else None
+        members.append((codes, values, out, geom, order, ordered))
+        MEMBERS["sort_ordered" if ordered else geom.name] += 1
     LAUNCHES[name] += kernel.launch(name, members, op)
 
 
+def _plain(codes: torch.Tensor, values: torch.Tensor, num_segments: int, op: str,
+           ordered: bool) -> torch.Tensor:
+    """The plain version; values in code order are reduced at their codes."""
+    if ordered:
+        order = code_order(codes, num_segments, values.shape[1])
+        if order is None:
+            raise ValueError("values in code order need the sort regime")
+        codes = codes.index_select(0, order.perm)
+    return segment_aggregate_ref(codes, values.to(torch.float32), num_segments, op)
+
+
 def aggregate_op(codes: torch.Tensor, values: torch.Tensor, num_segments: int,
-                 op: str = "sum") -> torch.Tensor:
+                 op: str = "sum", ordered: bool = False) -> torch.Tensor:
     """``out[g, v] = ⊕_{n: codes[n] = g} values[n, v]``, ⊕ ∈ {sum, min, max}.
 
     ``codes`` (N,) int32 in [0, G); ``values`` (N, V) float32, or (N,) which
     returns (G,).  Empty groups hold the ⊕-identity (0 / +inf / -inf).
+    ``ordered``: row i of ``values`` is row ``perm[i]`` of the message, perm
+    the row order of ``codes`` (:func:`code_order`, which must be the sort
+    regime's); the bits equal those of the message in row order.
     """
     squeeze = values.dim() == 1
     if squeeze:
         values = values[:, None]
     if codes.device.type == "cpu":
-        out = segment_aggregate_ref(codes, values, num_segments, op)
+        out = _plain(codes, values, num_segments, op, ordered)
     else:
         out = _checked_out(codes, values, num_segments, op)
         if codes.shape[0]:
-            _launch_members("segment_aggregate", [(codes, values, out)], op)
+            _launch_members("segment_aggregate", [(codes, values, out, ordered)], op)
     return out[:, 0] if squeeze else out
 
 
@@ -200,7 +293,7 @@ def level_segment_aggregate(codes: torch.Tensor, values: torch.Tensor, total_seg
         return level_segment_aggregate_ref(codes, values, total_segments, op)
     out = _checked_out(codes, values, total_segments, op)
     if codes.shape[0]:
-        _launch_members("level_segment_aggregate", [(codes, values, out)], op)
+        _launch_members("level_segment_aggregate", [(codes, values, out, False)], op)
     return out
 
 
@@ -210,23 +303,25 @@ def level_aggregate(items, op: str = "sum") -> list[torch.Tensor]:
     ``launch.SEG_MAX_MEMBERS`` messages).
 
     Item j is one same-level message: ``codes`` (n_j,) segment ids in
-    [0, g_j), ``values`` (n_j, v_j).  Each message is a member of the
-    launch's table with its own tensors and partition, so its output has
-    the same bits as ``aggregate_op`` gives it alone.  Returns the per-item
-    (g_j, v_j) outputs.  On the CPU the plain version reduces each item.
+    [0, g_j), ``values`` (n_j, v_j), and optionally a fourth element
+    ``ordered`` (as :func:`aggregate_op`'s).  Each message is a member of
+    the launch's table with its own tensors and partition, so its output
+    has the same bits as ``aggregate_op`` gives it alone.  Returns the
+    per-item (g_j, v_j) outputs.  On the CPU the plain version reduces each
+    item.
     """
     assert items, "level_aggregate of zero messages"
     if items[0][0].device.type == "cpu":
-        return [segment_aggregate_ref(codes, values.to(torch.float32), g, op)
-                for codes, values, g in items]
+        return [_plain(codes, values, g, op, bool(rest and rest[0]))
+                for codes, values, g, *rest in items]
     outs, members = [], []
-    for codes, values, g in items:
+    for codes, values, g, *rest in items:
         codes = codes.to(torch.int32).contiguous()
         values = values.to(torch.float32).contiguous()
         out = _checked_out(codes, values, g, op)
         outs.append(out)
         if codes.shape[0]:
-            members.append((codes, values, out))
+            members.append((codes, values, out, bool(rest and rest[0])))
     if members:
         _launch_members("level_segment_aggregate", members, op)
     return outs

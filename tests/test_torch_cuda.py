@@ -666,9 +666,138 @@ def test_cuda_segment_sums_do_not_depend_on_the_launch(cuda):
                                    rtol=_sum_rtol(rows), atol=0)
 
 
+# sort-regime messages: one value column, three (split segments), wide rows
+# (several 128-column blocks), 100,000 segments, and -1 pad codes
+ORDER_SPECS = [(60_000, 5_000, 1, False), (50_000, 3_000, 3, True), (200_000, 400, 72, True),
+               (1 << 20, 100_000, 1, False), (1 << 20, 50_000, 8, True)]
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_cuda_code_ordered_values_give_the_gathered_bits(cuda, op):
+    """A sort-regime message whose values arrive in code order (row i is
+    row perm[i], perm its row order) has the bits of the same message read
+    through the order: alone, through ``level_aggregate``, and as members
+    of a level launch with thread- and warp-regime messages, on gamma data
+    (sum) and with ±inf where min/max find nothing."""
+    msgs = []
+    for i, (n, g, v, skew) in enumerate(ORDER_SPECS):
+        c, x, g = _gamma_message(n, g, v, 40 + i, cuda, skew)
+        c[::97] = -1                                   # pad rows match nothing
+        msgs.append((c, _as_op_input(x.masked_fill(x < 1000.0, 0.0), op), g))
+    others = [_gamma_message(n, g, v, 60 + i, cuda)
+              for i, (n, g, v) in enumerate([(30_000, 6, 1), (40_000, 300, 2)])]
+    others = [(c, _as_op_input(x, op), g) for c, x, g in others]
+    want = [ops.aggregate_op(c, x, g, op) for c, x, g in msgs]
+    ordered = []
+    for c, x, g in msgs:
+        order = ops.code_order(c, g, x.shape[1])
+        assert order is not None, "not the sort regime"
+        ordered.append((c, x.index_select(0, order.perm), g, True))
+    alone = [ops.aggregate_op(c, x, g, op, ordered=True) for c, x, g, _ in ordered]
+    level = ops.level_aggregate(ordered, op=op)
+    mixed = ops.level_aggregate(others + ordered[::-1], op=op)[len(others):][::-1]
+    torch.cuda.synchronize()
+    for j, w in enumerate(want):
+        for got in (alone[j], level[j], mixed[j]):
+            assert torch.equal(got, w), f"{ORDER_SPECS[j]} {op}: code order gives other bits"
+    for (c, x, g), w in zip(msgs, want):
+        if op != "sum":
+            assert torch.equal(w, segment_aggregate_ref(c, x, g, op))
+
+
+# warp-regime messages: G just past the thread regime, two columns, the
+# widest copy of one column, 14 columns of 100 segments
+WARP_SPECS = [(1 << 20, 97, 1), (1 << 20, 300, 2), (1 << 20, 1_000, 1), (1 << 20, 1_472, 1),
+              (1 << 20, 100, 14)]
+
+
+@pytest.mark.parametrize("n,g,v", WARP_SPECS)
+def test_cuda_warp_regime_is_exact_and_repeats(cuda, n, g, v):
+    """The warp regime (lane masks per code, rounds by rank) equals the
+    plain version exactly on integer data, for sum, min and max, through
+    both wrappers; on gamma data its sums repeat bit for bit over launches,
+    a second stream and a graph replay, within the float32 sum bound."""
+    assert launch.segment_geometry(n, g, v).name == "warp"
+    c, x = _inputs(n, g, v, n + g, cuda)
+    for op in ("sum", "min", "max"):
+        y = _as_op_input(x, op)
+        want = segment_aggregate_ref(c, y, g, op)
+        assert torch.equal(ops.aggregate_op(c, y, g, op), want)
+        assert torch.equal(ops.level_aggregate([(c, y, g)], op=op)[0], want)
+    c, x, g = _gamma_message(n, g, v, 3, cuda)
+    outs = [ops.aggregate_op(c, x, g, "sum") for _ in range(3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs.append(ops.aggregate_op(c, x, g, "sum"))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = ops.aggregate_op(c, x, g, "sum")
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    for out in outs[1:] + [captured]:
+        assert torch.equal(out, outs[0])
+    rows = torch.bincount(c.long(), minlength=g).max().item()
+    torch.testing.assert_close(outs[0], segment_aggregate_ref(c, x, g, "sum"),
+                               rtol=_sum_rtol(rows), atol=0)
+
+
+def test_cuda_warm_interaction_builds_no_order_and_reads_code_order(cuda):
+    """On the card the first calibration builds its sort-regime messages'
+    row orders and code-ordered copies and launches them in code order; the
+    same interaction again on the warm Treant builds neither; a second fresh
+    Treant over the same catalog builds no order and copies only its own
+    lift (the gather indices' and σ codes' copies live with the catalog's
+    codes), and the answers of the two Treants are the same bits."""
+    cat = schema.salesforce(n_opp=50_000, n_user=2_000, n_camp=100, n_acc=200)
+    answers, built = [], []
+    for _ in range(2):
+        before = dict(ops.ORDER_BUILDS)
+        t = Treant(cat, ring=sr.SUM, device="cuda")
+        q = Query.make(cat, ring="sum", measure=("Opp", "amount")).with_group_by("user_id")
+        ops.reset_launches()
+        t.register_dashboard("by_user", q)
+        first = t.interact("anna", "by_user", q.with_group_by("camp_type"))
+        assert ops.MEMBERS["sort_ordered"] > 0
+        warm = dict(ops.ORDER_BUILDS)
+        again = t.interact("anna", "by_user", q.with_group_by("camp_type"))
+        torch.cuda.synchronize()
+        assert ops.ORDER_BUILDS == warm
+        assert torch.equal(first.factor.field, again.factor.field)
+        answers.append(first.factor.field.cpu())
+        built.append({k: ops.ORDER_BUILDS[k] - before[k] for k in before})
+    assert torch.equal(answers[0], answers[1])
+    assert built[0]["orders"] > 0 and built[0]["copies"] > 0
+    assert built[1]["orders"] == 0 and 0 < built[1]["copies"] <= built[0]["copies"]
+
+
+def test_cuda_covariance_fits_repeat_through_the_segment_kernels(cuda):
+    """Fig 18's regression on the card: the covariance ring's segment ⊕
+    launches the segment kernels, and two fresh fits give the same element
+    and weights bit for bit."""
+    from repro_torch.core import FactorizedLinearRegression, FeatureSpec
+
+    cat = schema.favorita(n_sales=20_000, n_stores=12, n_items=300, n_dates=40)
+    fits = []
+    for _ in range(2):
+        ops.reset_launches()
+        model = FactorizedLinearRegression(
+            cat, [FeatureSpec("Sales", "unit_sales"), FeatureSpec("Items", "item_weight")],
+            FeatureSpec("Trans", "transactions"), device="cuda")
+        res = model.fit()
+        assert ops.LAUNCHES["segment_aggregate"] + ops.LAUNCHES["level_segment_aggregate"] > 0
+        el = [leaf.cpu() for leaf in model.engine.execute(model._base_query())[0].field]
+        fits.append((el, res.weights))
+    (e0, w0), (e1, w1) = fits
+    assert all(torch.equal(a, b) for a, b in zip(e0, e1))
+    assert np.array_equal(np.asarray(w0), np.asarray(w1))
+
+
 def test_cuda_covariance_fit_and_augmentation_match_cpu(cuda):
     """Factorized regression on ``cuda`` against the port on the CPU (the
-    covariance ring reduces in plain torch on both): the base element and
+    covariance ring's segment ⊕ goes through the segment kernels on the card
+    and ``index_add_`` on the CPU): the base element and
     R², an augmentation's R² and every message count.  The weights are not
     compared: the intercept and the one-hot blocks are collinear, so the
     ridge alone pins them, and float sums in another order move them."""

@@ -236,9 +236,9 @@ def test_rowwise_blocks_equal_one_pass(monkeypatch):
     dims = ("carrier_group", "airport_state", "month")
     real, calls = plans.seg_ops.aggregate_op, []
 
-    def counting(codes, values, g, op="sum"):
+    def counting(codes, values, g, op="sum", **kw):
         calls.append(codes.shape[0])
-        return real(codes, values, g, op)
+        return real(codes, values, g, op, **kw)
 
     monkeypatch.setattr(plans.seg_ops, "aggregate_op", counting)
     tjt = T.jt_from_catalog(tcat)

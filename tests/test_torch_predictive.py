@@ -559,15 +559,19 @@ def test_slice_bin_cubes_equal_reference_slices(ring):
 
 @pytest.mark.parametrize("ring", ["sum", "tropical_max", "moments", "count_i64"])
 def test_split_level_launch_equals_one_launch(monkeypatch, ring):
-    """A level launch whose padded operands would pass ``ROWWISE_MAX_ELEMS``
+    """A level launch whose pending slabs would pass ``ROWWISE_MAX_ELEMS``
     goes out as several launches, in member order: the same messages, bit
-    for bit, as one launch, and the kernel-route rings launch more often."""
+    for bit, as one launch, and the kernel-route rings launch more often.
+    A message hands the launch one item per leaf of its ring (MOMENTS:
+    three); the launches are counted in messages."""
     from repro_torch.core import plans
 
     real, launches = plans.seg_ops.level_aggregate, []
+    leaves = len(T.sr.get(ring).zero_values)
 
     def counting(items, **kw):
-        launches.append(len(items))
+        assert len(items) % leaves == 0, (len(items), leaves)
+        launches.append(len(items) // leaves)
         return real(items, **kw)
 
     monkeypatch.setattr(plans.seg_ops, "level_aggregate", counting)

@@ -112,7 +112,8 @@ def test_segment_geometry_partitions_rows_once(n, g, v):
     [0, V) once; shared memory fits the launch; the workspace holds one
     partial per block, tile and cell, and the merge grid has a warp per tile
     and cell, exactly when a tile has several blocks.  Past a warp copy's
-    cells the message goes segment-major (sort)."""
+    cells the message goes segment-major (sort).  A warp-regime block holds
+    a copy of the cells and a lane mask per code for each of its warps."""
     geo = launch.segment_geometry(n, g, v)
     if geo.name == "sort":
         assert g > launch.SEG_THREAD_G and g * v > launch.SEG_WARP_CELLS
@@ -128,8 +129,8 @@ def test_segment_geometry_partitions_rows_once(n, g, v):
         assert geo.vt == min(v, launch.SEG_THREAD_COLS) and geo.smem == 4 * launch.THREADS * g
     else:
         assert geo.vt == v and g * v <= launch.SEG_WARP_CELLS
-        assert geo.smem == 4 * launch.SEG_WARPS * g * v
-    assert geo.smem <= (96 if geo.name == "thread" else 46) * 1024
+        assert geo.smem == 4 * launch.SEG_WARPS * g * (v + 1)
+    assert geo.smem <= 96 * 1024
     cells = geo.tiles * g * geo.vt
     assert (geo.ws, geo.merge) == ((cells * geo.blocks, cells) if geo.blocks > 1 else (0, 0))
 
@@ -150,16 +151,19 @@ def test_segment_geometry_reads_no_card(monkeypatch):
 
 
 def _member(n, g, v, seed, index=None):
+    """A packed member; a sort member of odd seed has its values in code
+    order (no index)."""
     geo = launch.segment_geometry(n, g, v)
     n_items = n_splits = 0
+    ordered = geo.name == "sort" and seed % 2 == 1
     if geo.name == "sort":
         codes = torch.as_tensor(_inputs(n, g, v, seed)[0])
         order = ops.row_order(codes, g, geo.chunk)
         geo = launch.sort_launch(geo, v, order.n_items, order.n_slots, order.n_splits)
         n_items, n_splits = order.n_items, order.n_splits
     base = 1000 * (seed + 1)
-    return (geo, base + 1, base + 2, base + 3, base + 4 if n_items else None, n, g, v,
-            n_items, n_splits)
+    return (geo, None if ordered else base + 1, base + 2, base + 3,
+            base + 4 if n_items else None, n, g, v, n_items, n_splits, ordered)
 
 
 MEMBERS = [(30_000, 6, 1), (20_000, 20, 300), (40_000, 300, 2), (20_000, 100, 14),
@@ -183,23 +187,28 @@ def test_member_table_does_not_depend_on_the_other_members():
     (mixed,) = launch.pack_members(members)
     t = mixed.table
     assert t.count == len(members)
-    order = sorted(range(len(members)), key=lambda j: members[j][0].regime)
-    blocks, smem, count = [0, 0, 0, 0], [0, 0, 0, 0], [0, 0, 0, len(members)]
+
+    def grid(j):  # a sort member in code order runs in its own grid
+        return launch.SEG_SORT_ORDERED if members[j][-1] else members[j][0].regime
+
+    order = sorted(range(len(members)), key=grid)
+    blocks, smem = [0] * launch.SEG_GRIDS, [0] * launch.SEG_GRIDS
+    count = [0] * (launch.SEG_GRIDS - 1) + [len(members)]
     ws = merge = 0
     for slot, j in enumerate(order):
-        geo = members[j][0]
+        geo, r = members[j][0], grid(j)
         m = t.m[slot]
         assert _fields(m) == alone[j]
-        assert (m.first_block, m.ws, m.aux) == (blocks[geo.regime], ws, merge)
-        blocks[geo.regime] += geo.blocks * geo.tiles
-        smem[geo.regime] = max(smem[geo.regime], geo.smem)
-        count[geo.regime] += 1
+        assert (m.first_block, m.ws, m.aux) == (blocks[r], ws, merge)
+        blocks[r] += geo.blocks * geo.tiles
+        smem[r] = max(smem[r], geo.smem)
+        count[r] += 1
         ws += geo.ws
         merge += geo.merge
-    blocks[3] = -(-merge // launch.SEG_WARPS)
-    assert count == [3, 2, 3, 8]
+    blocks[launch.SEG_MERGE] = -(-merge // launch.SEG_WARPS)
+    assert count == [3, 2, 2, 1, 8]
     assert list(t.members) == count
-    assert list(t.first) == [0, count[0], count[0] + count[1], 0]
+    assert list(t.first) == [0, 3, 5, 7, 0]
     assert list(t.grid) == blocks and list(t.smem) == smem
     assert (mixed.grid, mixed.ws) == (sum(blocks), ws)
     (rev,) = launch.pack_members(members[::-1])
@@ -213,14 +222,28 @@ def test_member_table_does_not_depend_on_the_other_members():
 
 
 def test_member_table_layout_matches_the_c_struct():
-    """``SegMember`` is ``struct segagg::Member`` (96 bytes) and the table
-    (count, four arrays over the three regimes and the merge grid,
-    SEG_MAX_MEMBERS members) stays under the 4 KiB of a kernel's
-    parameters."""
+    """``SegMember`` is ``struct segagg::Member`` (96 bytes, field for field:
+    four pointers, three 64-bit counts, then 32-bit fields) and the table
+    (count, five arrays over the three regimes, the sort regime in two
+    forms, and the merge grid, SEG_MAX_MEMBERS members) stays under the 4
+    KiB of a kernel's parameters.  A sort member in code order is flagged
+    by its grid, ``SEG_SORT_ORDERED``, and passes no index."""
     import ctypes
 
     assert ctypes.sizeof(launch.SegMember) == 96
-    assert ctypes.sizeof(launch.SegTable) == 8 + 64 + 96 * launch.SEG_MAX_MEMBERS <= 4096 - 16
+    names = [name for name, _ in launch.SegMember._fields_]
+    assert names == ["index", "values", "out", "items", "n", "chunk", "ws", "g", "v", "regime",
+                     "vt", "tiles", "blocks", "first_block", "aux", "n_items", "n_splits"]
+    offsets = [getattr(launch.SegMember, name).offset for name in names]
+    assert offsets == [0, 8, 16, 24, 32, 40, 48] + list(range(56, 96, 4))
+    assert (launch.SEG_SORT, launch.SEG_SORT_ORDERED, launch.SEG_MERGE) == (2, 3, 4)
+    (one,) = launch.pack_members([_member(60_000, 5_000, 1, 1)])
+    assert one.table.m[0].regime == launch.SEG_SORT_ORDERED and one.table.m[0].index is None
+    assert list(one.table.members) == [0, 0, 0, 1, 1]
+    (two,) = launch.pack_members([_member(60_000, 5_000, 1, 2)])
+    assert two.table.m[0].regime == launch.SEG_SORT and two.table.m[0].index == 3001
+    assert list(two.table.members) == [0, 0, 1, 0, 1]
+    assert ctypes.sizeof(launch.SegTable) == 8 + 80 + 96 * launch.SEG_MAX_MEMBERS <= 4096 - 16
 
 
 @pytest.mark.parametrize("piece", [1, 3, 64])
@@ -302,3 +325,140 @@ def test_cached_row_order_follows_the_codes_tensor():
     again = ops.cached_row_order(codes, g, 64)
     assert again is not first
     np.testing.assert_array_equal(again.perm.numpy(), np.argsort(codes.numpy(), kind="stable"))
+
+
+# ---------------------------------------------------------------------------
+# code-ordered slabs: the plan layer permutes its rowwise inputs once per
+# cached row order, so the slab of a sort-regime message arrives in code order
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import Query, Treant  # noqa: E402
+from repro_torch.core import plans  # noqa: E402
+from repro_torch.core import semiring as tsr  # noqa: E402
+
+RINGS = {"sum": tsr.SUM, "moments": tsr.MOMENTS, "tropical_max": tsr.TROPICAL_MAX}
+
+
+def _contraction(ring, seed, n=6_000, groups=3_000):
+    """A sparse contraction whose segment reduction is the sort regime:
+    relation attrs (a, b, c), an incoming message over (b, x) with x carried
+    (3 lanes), σ on c, out (a, x): G = ``groups``, V = 3 lanes × leaves."""
+    rng = np.random.default_rng(seed)
+    doms = {"a": groups, "b": 50, "c": 7, "x": 3}
+    a = torch.as_tensor(rng.integers(0, groups, n).astype(np.int32))
+    b = torch.as_tensor(rng.integers(0, 50, n).astype(np.int32))
+    c = torch.as_tensor(rng.integers(0, 7, n).astype(np.int32))
+    lift = torch.as_tensor(rng.gamma(2.0, 3.0, n).astype(np.float32))
+    msg = torch.as_tensor(rng.gamma(2.0, 3.0, (50, 3)).astype(np.float32))
+    if ring is tsr.MOMENTS:
+        vals, field = (torch.ones(n), lift, lift * lift), (torch.ones(50, 3), msg, msg * msg)
+    else:
+        vals, field = lift, msg
+    parts = plans._sparse_plan_parts(ring, ("a", "b", "c"), doms, (("b", "x"),), ("c",),
+                                     ("a", "x"), n)
+    mask = torch.as_tensor(rng.random(7) < 0.7)
+    return parts, (vals, (field,), (b,), (mask,), (c,), a)
+
+
+@pytest.mark.parametrize("ring", list(RINGS))
+def test_rowwise_in_code_order_is_the_gathered_slab_permuted(ring):
+    """The rowwise stage over the permuted inputs (the lift's leaves, the
+    gather indices, the σ row codes) equals the gathered slabs permuted by
+    the row order, exactly; they reduce with the same bits as the gathered
+    route; a rerun copies nothing.  On the CPU the plan's own route
+    (``ordered`` None) takes no order: only the card's kernel reads one."""
+    (fn, slab, _, meta), (vals, fields, idx, masks, pcodes, seg) = _contraction(RINGS[ring], 5)
+    assert meta.use_kernel and meta.code_order
+    before = dict(ops.ORDER_BUILDS)
+    rv, gathered, in_order = slab(vals, fields, idx, masks, pcodes, seg, ordered=False)
+    assert not in_order
+    _, default, in_order = slab(vals, fields, idx, masks, pcodes, seg)
+    assert not in_order and ops.ORDER_BUILDS == before
+    assert all(torch.equal(x, y) for x, y in zip(default, gathered))
+    rv_o, ordered, in_order = slab(vals, fields, idx, masks, pcodes, seg, ordered=True)
+    assert in_order and ops.ORDER_BUILDS["copies"] > before["copies"]
+    assert len(ordered) == len(gathered) == len(tsr.leaves(rv))
+    order = ops.code_order(seg, meta.total, gathered[0].shape[1])
+    for x, x_o in zip(gathered, ordered):
+        assert torch.equal(x_o, x[order.perm.long()])
+    for leaf, leaf_o in zip(tsr.leaves(rv), tsr.leaves(rv_o)):
+        assert torch.equal(leaf_o, leaf[order.perm.long()])
+    copies = ops.ORDER_BUILDS["copies"]
+    slab(vals, fields, idx, masks, pcodes, seg, ordered=True)
+    assert ops.ORDER_BUILDS["copies"] == copies
+    op = RINGS[ring].kernel_segment_op
+    for x, x_o in zip(gathered, ordered):
+        want = ops.aggregate_op(seg, x, meta.total, op)
+        assert torch.equal(ops.aggregate_op(seg, x_o, meta.total, op, ordered=True), want)
+        assert torch.equal(ops.level_aggregate([(seg, x_o, meta.total, True)], op=op)[0], want)
+    fn_g = plans._sparse_plan_parts(
+        RINGS[ring], ("a", "b", "c"), {"a": 3_000, "b": 50, "c": 7, "x": 3}, (("b", "x"),),
+        ("c",), ("a", "x"), 6_000, code_order=False)[0]
+    for x, y in zip(tsr.leaves(fn(vals, fields, idx, masks, pcodes, seg).field),
+                    tsr.leaves(fn_g(vals, fields, idx, masks, pcodes, seg).field)):
+        assert torch.equal(x, y)
+
+
+def test_code_order_wrappers_refuse_other_regimes():
+    """Values in code order exist only for the sort regime: a thread- or
+    warp-regime message given as ordered raises."""
+    codes, vals = (torch.as_tensor(a) for a in _inputs(4096, 300, 2, 3))
+    assert ops.code_order(codes, 300, 2) is None
+    with pytest.raises(ValueError, match="sort regime"):
+        ops.aggregate_op(codes, vals, 300, ordered=True)
+
+
+def test_slab_and_unstack_round_trip_with_trailing_dims():
+    """``_slab`` flattens each leaf past its rows into a (rows, V) slab of
+    its own, a view of a contiguous leaf; ``_unstack`` gives each reduced
+    slab back its leaf's shape (covariance: c (n, L), s (n, L, k), Q (n, L,
+    k, k))."""
+    rng = np.random.default_rng(2)
+    n, lanes, k = 37, 3, 4
+    leaves = tuple(torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+                   for s in ((n, lanes), (n, lanes, k), (n, lanes, k, k)))
+    flat = plans._slab(leaves, n)
+    assert [x.shape for x in flat] == [(n, lanes), (n, lanes * k), (n, lanes * k * k)]
+    assert all(x.data_ptr() == leaf.data_ptr() for x, leaf in zip(flat, leaves))
+    back = plans._unstack(flat, leaves, n)
+    assert all(torch.equal(a, b) for a, b in zip(back, leaves))
+    one = plans._unstack(plans._slab(leaves[1], n), leaves[1], n)
+    assert torch.equal(one, leaves[1])
+    strided = leaves[2].transpose(2, 3)
+    (x,) = plans._slab(strided, n)
+    assert x.is_contiguous() and torch.equal(x, strided.reshape(n, -1))
+
+
+def test_covariance_ring_takes_the_kernel_route_on_the_card_only():
+    """The covariance ring's segment ⊕ goes to the segment kernels (each
+    leaf a member of its own) on a CUDA device; on the CPU it keeps its float32
+    ``index_add_``, as the reference's ``segment_sum``; its slabs stay in
+    row order (a permuted copy of its wide lift per order would cost its
+    whole width)."""
+    ring = tsr.make_covariance_ring(3)
+    assert ring.kernel_segment_op == "sum"
+    *_, meta = plans._sparse_plan_parts(ring, ("a",), {"a": 4_000}, (), (), ("a",), 64)
+    assert meta.use_kernel and not meta.code_order
+    assert not meta.kernel_on(torch.zeros(4, dtype=torch.int32))
+    assert meta.kernel_on(torch.zeros(4, dtype=torch.int32, device="meta"))
+
+
+def test_warm_interaction_builds_no_order_and_no_copy():
+    """On the CPU the plans build no row order and no code-ordered copy (the
+    plain version reads neither), for a first calibration with sort-regime
+    messages (codes of 2,000 users), the same interaction again, and a
+    fresh Treant over the same catalog; the answers are the same bits."""
+    cat = schema.salesforce(n_opp=6_000, n_user=2_000, n_camp=40, n_acc=60)
+    warm = dict(ops.ORDER_BUILDS)
+    t = Treant(cat, ring=tsr.SUM, device="cpu")
+    q = Query.make(cat, ring="sum", measure=("Opp", "amount")).with_group_by("user_id")
+    t.register_dashboard("by_user", q)
+    first = t.interact("anna", "by_user", q.with_group_by("camp_type"))
+    again = t.interact("anna", "by_user", q.with_group_by("camp_type"))
+    t.register_dashboard("by_user_again", q)
+    fresh = Treant(cat, ring=tsr.SUM, device="cpu")
+    fresh.register_dashboard("by_user", q)
+    other = fresh.interact("anna", "by_user", q.with_group_by("camp_type"))
+    assert ops.ORDER_BUILDS == warm
+    assert torch.equal(first.factor.field, again.factor.field)
+    assert torch.equal(first.factor.field, other.factor.field)

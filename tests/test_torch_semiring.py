@@ -125,4 +125,7 @@ def test_covariance_ring_matches_reference():
     _assert_same(ja, ta)
     _assert_same(jr.mul(ja, ja), tr.mul(ta, ta))
     _assert_same(jr.add_reduce(ja, (0,)), tr.add_reduce(ta, (0,)))
-    assert tr.kernel_segment_op is None and tr.trailing == (0, 1, 2)
+    # the port sends the ring's segment ⊕ to the segment kernels (leaves side
+    # by side); the reference reduces it with segment_sum
+    assert tr.kernel_segment_op == "sum" and jr.kernel_segment_op is None
+    assert tr.trailing == (0, 1, 2)
