@@ -1,0 +1,8 @@
+"""Messages the CJT engine computed per event: ``ExecStats.messages_computed``
+summed over each event's rendered vizzes, over the window's events."""
+
+
+def read(run):
+    if not run.events:
+        return None
+    return sum(e.computed for e in run.events) / len(run.events)
