@@ -55,6 +55,7 @@ from typing import Callable, Iterable, Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.relational.relation import LRU, Catalog, Delta, Relation, lift_rows
 from . import distributed as dist
 from . import semiring as sr
@@ -722,8 +723,12 @@ class CJTEngine:
         ]
         sep = self.jt.separator(u, v)
         out_attrs = tuple(dict.fromkeys(sep + gamma))
-        f = self._bag_contract(q, u, incoming, out_attrs, placement, stats)
-        self.store.put(base, gamma, f, cost=self._edge_cost_hint(q, u, out_attrs))
+        with trace.span("cjt.message") as sp:
+            if trace.on():
+                sp.set(edge=f"{u}->{v}", rows=self._bag_rows(q, u),
+                       width=int(np.prod([self.jt.domains.get(a, 1) for a in gamma])))
+            f = self._bag_contract(q, u, incoming, out_attrs, placement, stats)
+            self.store.put(base, gamma, f, cost=self._edge_cost_hint(q, u, out_attrs))
         if stats:
             stats.messages_computed += 1
             stats.recomputed_edges.append((u, v))
@@ -770,9 +775,7 @@ class CJTEngine:
         if self.plans is not None:
             measure = q.measure[1] if q.measure and q.measure[0] == rel.name else None
             key = (rel.key, self.ring.name, measure, q.lift_tag, self._lift_id(rel.name))
-            return self.plans.lift_cached(
-                key, lambda: self._pad_lift(self._lift_impl(q, rel), rel)
-            )
+            return self.plans.lift_cached(key, lambda: self._lift_impl(q, rel, pad=True))
         return self._lift_impl(q, rel)
 
     def _pad_lift(self, vals: sr.Field, rel: Relation) -> sr.Field:
@@ -788,11 +791,15 @@ class CJTEngine:
             vals = sr.field_map(lambda a, z: torch.cat([a, z], dim=0), vals, zeros)
         return vals
 
-    def _lift_impl(self, q: Query, rel: Relation) -> sr.Field:
-        if rel.name in self.lifts:
-            return self.lifts[rel.name](rel)
-        measure = q.measure[1] if q.measure and q.measure[0] == rel.name else None
-        return lift_rows(rel, self.ring, measure, self.device)
+    def _lift_impl(self, q: Query, rel: Relation, pad: bool = False) -> sr.Field:
+        """A new lift of ``rel``'s rows (``pad``: to its row bucket)."""
+        with trace.span("cjt.lift", rel=rel.name, rows=rel.num_rows):
+            if rel.name in self.lifts:
+                vals = self.lifts[rel.name](rel)
+            else:
+                measure = q.measure[1] if q.measure and q.measure[0] == rel.name else None
+                vals = lift_rows(rel, self.ring, measure, self.device)
+            return self._pad_lift(vals, rel) if pad else vals
 
     def _base_factor(self, q: Query, rel: Relation) -> Factor:
         """Densified base relation on the engine's device, cached when plans
@@ -958,17 +965,18 @@ class CJTEngine:
                 ) -> tuple[Factor, ExecStats]:
         """Execute ``q``: message passing to ``root``, absorption,
         γ-projection.  ``sync=True`` waits for the device once, on the result."""
-        stats = ExecStats()
-        placement = self.place_predicates(q)
-        root = root or self.choose_root(q, placement)
-        with self.store.inflight():
-            f = self.absorb(q, root, placement, stats)
-        out = f.project_to(q.group_by)
-        touched = {b for edge in stats.recomputed_edges for b in edge}
-        stats.steiner_size = len(touched | {root})
-        if sync:
-            synchronize([out.field])
-        return out, stats
+        with trace.span("cjt.execute", queries=1):
+            stats = ExecStats()
+            placement = self.place_predicates(q)
+            root = root or self.choose_root(q, placement)
+            with self.store.inflight():
+                f = self.absorb(q, root, placement, stats)
+            out = f.project_to(q.group_by)
+            touched = {b for edge in stats.recomputed_edges for b in edge}
+            stats.steiner_size = len(touched | {root})
+            if sync:
+                synchronize([out.field])
+            return out, stats
 
     def execute_many(self, queries: Sequence[Query], sync: bool = True,
                      tags: Sequence[str | None] | None = None
@@ -985,7 +993,7 @@ class CJTEngine:
         integer-valued data; dense bags and ``use_plans=False`` engines absorb
         one query at a time.
         """
-        with self.store.inflight():
+        with trace.span("cjt.execute_many", queries=len(queries)), self.store.inflight():
             return self._execute_many_inflight(queries, sync, tags)
 
     def _execute_many_inflight(self, queries, sync=True, tags=None
@@ -1040,9 +1048,7 @@ class CJTEngine:
                     for i, _ in members:
                         all_stats[i].batch_sessions = len(owners)
                     if len(owners) > 1:
-                        ps = self.plans.stats
-                        ps.cross_session_execs += 1
-                        ps.cross_session_width = max(ps.cross_session_width, len(owners))
+                        self.plans.stats.cross_session_execs += 1
         outs: list[tuple[Factor, ExecStats]] = []
         for i, q in enumerate(queries):
             out = results[i].project_to(q.group_by)
@@ -1198,7 +1204,7 @@ class CJTEngine:
         edges advanced; a partially-stepped level (``plan.offset``) is
         finished first.
         """
-        with self.store.inflight():
+        with trace.span("cjt.level", plans=len(plans)), self.store.inflight():
             return self._run_level_inflight(plans, stats_list, tags)
 
     def _run_level_inflight(self, plans, stats_list=None, tags=None) -> int:

@@ -47,9 +47,11 @@ Query derivation contract (equal digests to hand-built chains): for each viz,
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import TYPE_CHECKING, Mapping
 
+from repro_torch import trace
 from repro_torch.relational.relation import Predicate, mask_in, mask_range
 from .calibration import CalibrationPlan, CJTEngine, ExecStats, factor_nbytes, synchronize
 from .plans import slice_bin_cube, slice_bin_cubes
@@ -293,7 +295,8 @@ class InteractionResult:
 @dataclasses.dataclass
 class ApplyResult:
     """Outcome of one ``Session.apply``: which vizzes re-rendered and how.
-    ``latency_s`` covers the whole fan-out, ending in one device sync."""
+    ``latency_s`` runs from ``apply``'s entry (the queries' derivation
+    included) to the fan-out's one device sync."""
 
     event: object
     affected: tuple[str, ...]
@@ -668,9 +671,13 @@ class Session:
         one's pending background calibration is preempted and re-scheduled
         for the new query (no other viz's progress is touched).
         """
-        if not self._record(event):
-            return ApplyResult(event, (), {}, dict(self._current), 0.0)
-        return self._fan_out(event)
+        t0 = time.perf_counter()
+        with trace.span("session.apply", event=type(event).__name__) as sp:
+            if not self._record(event):
+                return ApplyResult(event, (), {}, dict(self._current), time.perf_counter() - t0)
+            res = self._fan_out(event, t0)
+            sp.set(affected=res.affected)
+            return res
 
     def _record(self, event) -> bool:
         """Validate and apply one event to the declarative state without
@@ -749,14 +756,70 @@ class Session:
                 v = self._view(name)
                 v.toggled = v.toggled ^ {event.relation}
 
-    def _fan_out(self, event) -> ApplyResult:
-        derived, affected = self._derived_affected()
+    def _fan_out(self, event, t0: float) -> ApplyResult:
+        with trace.span("session.derive"):
+            derived, affected = self._derived_affected()
         results: dict[str, InteractionResult] = {}
         pending = []
-        t0 = time.perf_counter()
-        # serve speculatively prefetched results first: the fan-out for this
-        # σ already ran during think-time, so the viz costs zero store probes
-        # and zero plan executions now
+        with trace.span("session.prefetch_match"):
+            to_run, cube_hits = self._serve_parked(event, affected, derived, results)
+        if cube_hits:
+            engine = self._treant.engine_for(cube_hits[0][1].ring_name, cube_hits[0][1].measure)
+            with trace.span("session.cube_slice", vizzes=len(cube_hits)):
+                sliced = slice_bin_cubes(
+                    [(e.factor, dim, [p.mask for p in q.predicates_on(dim)], q.group_by)
+                     for _, q, e, dim in cube_hits],
+                    stats=engine.plans.stats if engine.plans is not None else None,
+                )
+            for (name, q, _, _), f in zip(cube_hits, sliced):
+                self.bin_cube_hits += 1
+                results[name] = InteractionResult(f, ExecStats(bin_cube_hits=1), 0.0, 0)
+                self._current[name] = q
+                pending.append(f.field)
+                self.scheduler.schedule(self.id, name, q,
+                                        self._treant.engine_for(q.ring_name, q.measure))
+        # the rest: one execute_many per engine with batch_fanout (sibling
+        # absorptions share a launch), else one execute per viz; the device
+        # syncs once
+        for engine, names in _group_by_engine(
+            (self._treant.engine_for(derived[n].ring_name, derived[n].measure), n)
+            for n in to_run
+        ):
+            td = time.perf_counter()
+            batched = self._treant.batch_fanout and len(names) > 1
+            with trace.span("session.execute", vizzes=len(names), batched=batched):
+                if batched:
+                    group = engine.execute_many(
+                        [derived[n] for n in names], sync=False,
+                        tags=[f"{self.id}:{n}" for n in names],
+                    )
+                else:
+                    group = []
+                    for name in names:
+                        self.store.tag = f"{self.id}:{name}"
+                        try:
+                            group.append(engine.execute(derived[name], sync=False))
+                        finally:
+                            self.store.tag = None
+            dt = time.perf_counter() - td
+            for name, (factor, stats) in zip(names, group):
+                q = derived[name]
+                results[name] = InteractionResult(factor, stats, dt, stats.steiner_size)
+                self._current[name] = q
+                pending.append(factor.field)
+                self.scheduler.schedule(self.id, name, q, engine)
+        with trace.span("session.sync"):
+            synchronize(pending)
+        return ApplyResult(event, affected, results, derived, time.perf_counter() - t0)
+
+    def _serve_parked(self, event, affected, derived, results
+                      ) -> tuple[list[str], list[tuple[str, Query, _BinCube, str]]]:
+        """Serve the vizzes whose query a think-time prefetch parked (into
+        ``results``), then match the rest against the parked bin cubes:
+        returns (vizzes to execute, cube hits as (viz, query, cube, dim))."""
+        # prefetched results first: the fan-out for this σ already ran during
+        # think-time, so the viz costs zero store probes and zero plan
+        # executions now
         to_run: list[str] = []
         cube_hits: list[tuple[str, Query, _BinCube, str]] = []
         for name in affected:
@@ -776,50 +839,7 @@ class Session:
                 cube_hits.append((name, q, match[0], match[1]))
             else:
                 to_run.append(name)
-        if cube_hits:
-            engine = self._treant.engine_for(cube_hits[0][1].ring_name, cube_hits[0][1].measure)
-            sliced = slice_bin_cubes(
-                [(e.factor, dim, [p.mask for p in q.predicates_on(dim)], q.group_by)
-                 for _, q, e, dim in cube_hits],
-                stats=engine.plans.stats if engine.plans is not None else None,
-            )
-            for (name, q, _, _), f in zip(cube_hits, sliced):
-                self.bin_cube_hits += 1
-                results[name] = InteractionResult(f, ExecStats(bin_cube_hits=1), 0.0, 0)
-                self._current[name] = q
-                pending.append(f.field)
-                self.scheduler.schedule(self.id, name, q,
-                                        self._treant.engine_for(q.ring_name, q.measure))
-        # the rest: one execute_many per engine with batch_fanout (sibling
-        # absorptions share a launch), else one execute per viz; the device
-        # syncs once
-        for engine, names in _group_by_engine(
-            (self._treant.engine_for(derived[n].ring_name, derived[n].measure), n)
-            for n in to_run
-        ):
-            td = time.perf_counter()
-            if self._treant.batch_fanout and len(names) > 1:
-                group = engine.execute_many(
-                    [derived[n] for n in names], sync=False,
-                    tags=[f"{self.id}:{n}" for n in names],
-                )
-            else:
-                group = []
-                for name in names:
-                    self.store.tag = f"{self.id}:{name}"
-                    try:
-                        group.append(engine.execute(derived[name], sync=False))
-                    finally:
-                        self.store.tag = None
-            dt = time.perf_counter() - td
-            for name, (factor, stats) in zip(names, group):
-                q = derived[name]
-                results[name] = InteractionResult(factor, stats, dt, stats.steiner_size)
-                self._current[name] = q
-                pending.append(factor.field)
-                self.scheduler.schedule(self.id, name, q, engine)
-        synchronize(pending)
-        return ApplyResult(event, affected, results, derived, time.perf_counter() - t0)
+        return to_run, cube_hits
 
     # -- undo state ------------------------------------------------------------
     def _snapshot(self):
@@ -908,7 +928,9 @@ class Session:
                 policy = FixedKPrefetch(speculate)
         if policy is None:
             policy = self.policy or self._treant.think_time_policy
-        return policy.run(self, ThinkTimeBudget(messages=budget_messages, seconds=budget_seconds))
+        with trace.span("session.idle", policy=policy.name):
+            return policy.run(self, ThinkTimeBudget(messages=budget_messages,
+                                                    seconds=budget_seconds))
 
     def _speculate(self, k: int) -> int:
         """Pre-execute the fan-out for up to ``k`` neighbor σ values of the
@@ -960,9 +982,10 @@ class Session:
                 self._filters[ev.attr] = saved
         if not items:
             return 0
-        for key, factor in self.scheduler.speculate(self.id, items).items():
-            q, dist = meta[key]
-            self._prefetched[key] = _Prefetched(factor, q, dist)
+        with trace.span("think.prefetch", k=len(cands), queries=len(items)):
+            for key, factor in self.scheduler.speculate(self.id, items).items():
+                q, dist = meta[key]
+                self._prefetched[key] = _Prefetched(factor, q, dist)
         self._evict_prefetched()
         return len(items)
 
@@ -1007,10 +1030,18 @@ class Session:
         (union-carry widening applies: the cube's messages are the wide ones
         sibling calibrations share), then parks the absorbed factor keyed by
         the cube query's digest."""
+        with trace.span("think.cube_build", viz=viz, dim=dim) as sp:
+            built = self._build_bin_cube_in(viz, dim)
+            sp.set(built=built is not None, cells=built or 0)
+        return built is not None
+
+    def _build_bin_cube_in(self, viz: str, dim: str) -> int | None:
+        """:meth:`_build_bin_cube`'s work: the cube's cells, or None when no
+        new cube was parked."""
         q = self.derive(viz)
         cq = self._cube_query(q, dim)
         if cq is None:
-            return False
+            return None
         key = (viz, cq.digest)
         if key in self._bin_cubes:
             # refresh recency: the policy still predicts this cube, so it
@@ -1023,7 +1054,7 @@ class Session:
             entry.dims.add(dim)
             self._bin_cubes[key] = entry
             self._cube_dims.setdefault(viz, set()).add(dim)
-            return False
+            return None
         engine = self._treant.engine_for(cq.ring_name, cq.measure)
         self.store.tag = f"{self.id}:{viz}"
         try:
@@ -1031,7 +1062,7 @@ class Session:
         finally:
             self.store.tag = None
         if dim not in factor.attrs:  # γ collapsed the dim away: not sliceable
-            return False
+            return None
         self._bin_cubes[key] = _BinCube(
             factor=factor, query=cq, dim=dim, viz=viz,
             nbytes=factor_nbytes(factor),
@@ -1042,7 +1073,7 @@ class Session:
         if engine.plans is not None:
             engine.plans.stats.cube_builds += 1
         self._evict_bin_cubes()
-        return True
+        return math.prod(factor.domain_shape)
 
     def _match_bin_cube(self, viz: str, q: Query, hint: str | None = None):
         """Find a parked cube covering ``q``: for each dim with a cube on

@@ -58,6 +58,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import costs as kernel_costs
 from repro_torch.kernels.launch import unit_strides
 from repro_torch.kernels.segment_aggregate import ops as seg_ops
@@ -202,9 +203,8 @@ class PlanStats:
     fused_level_launches: int = 0
     fused_level_messages: int = 0
     # cross-session batched fan-out: batched calls whose members span >1
-    # session, and the widest distinct-session count observed
+    # session
     cross_session_execs: int = 0
-    cross_session_width: int = 0
     # bin cubes (core/predictive.py): think-time γ∪{dim} materializations
     # built through this engine, and warm brushes served by slicing one
     # (select + ⊕-marginalize — no plan execution, no store probe)
@@ -219,8 +219,7 @@ class PlanStats:
     shard_imbalance: float = 0.0
 
     # counters that are high-water marks, not sums
-    MAX_FIELDS = ("batch_width", "level_batch_width", "cross_session_width",
-                  "shard_imbalance")
+    MAX_FIELDS = ("batch_width", "level_batch_width", "shard_imbalance")
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -406,25 +405,30 @@ def _sparse_plan_parts(
         True wherever the route allows, False never."""
         order = None
         if code_order and (seg_idx.is_cuda if ordered is None else ordered):
-            # every leaf is its own (rows, lanes) member of the reduction
-            order = seg_ops.code_order(seg_idx, total, lanes)
-        if order is not None:
-            leaves = sr.leaves(vals)
-            perm = seg_ops.in_code_order(seg_idx, order, (*leaves, *in_idx, *pred_codes))
-            vals = sr.like(vals, perm[:len(leaves)])
-            in_idx = perm[len(leaves):len(leaves) + len(in_idx)]
-            pred_codes = perm[len(leaves) + len(in_idx):]
-        rv = rowwise(vals, in_fields, in_idx, pred_masks, pred_codes)
-        return rv, _slab(rv, seg_idx.shape[0]), order is not None
+            with trace.span("plans.code_order"):
+                # every leaf is its own (rows, lanes) member of the reduction
+                order = seg_ops.code_order(seg_idx, total, lanes)
+                if order is not None:
+                    leaves = sr.leaves(vals)
+                    perm = seg_ops.in_code_order(seg_idx, order, (*leaves, *in_idx, *pred_codes))
+                    vals = sr.like(vals, perm[:len(leaves)])
+                    in_idx = perm[len(leaves):len(leaves) + len(in_idx)]
+                    pred_codes = perm[len(leaves) + len(in_idx):]
+        with trace.span("plans.rowwise"):
+            rv = rowwise(vals, in_fields, in_idx, pred_masks, pred_codes)
+            return rv, _slab(rv, seg_idx.shape[0]), order is not None
 
     def reduce(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx, ordered=None):
         if meta.kernel_on(seg_idx):
             rv, values, in_order = slab(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx,
                                         ordered)
-            return _unstack([seg_ops.aggregate_op(seg_idx, x, total, op=op, ordered=in_order)
-                             for x in values], rv, total)
-        vals = rowwise(vals, in_fields, in_idx, pred_masks, pred_codes)
-        return ring.segment_reduce(vals, seg_idx, total)
+            with trace.span("plans.reduce"):
+                return _unstack([seg_ops.aggregate_op(seg_idx, x, total, op=op, ordered=in_order)
+                                 for x in values], rv, total)
+        with trace.span("plans.rowwise"):
+            vals = rowwise(vals, in_fields, in_idx, pred_masks, pred_codes)
+        with trace.span("plans.reduce"):
+            return ring.segment_reduce(vals, seg_idx, total)
 
     def fn(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx):
         # past ROWWISE_MAX_ELEMS rowwise elements, reduce a block of rows at a
@@ -638,7 +642,8 @@ def _level_plan_parts(ring: sr.Semiring, group_statics: tuple, code_order: bool 
         def launch():
             items = [(seg_idx, x, meta.total, in_order)
                      for _, _, _, seg_idx, values, in_order, meta in pending for x in values]
-            aggs = iter(seg_ops.level_aggregate(items, op=op))
+            with trace.span("plans.reduce", members=len(items)):
+                aggs = iter(seg_ops.level_aggregate(items, op=op))
             for g, b, rv, _, values, _, meta in pending:
                 finalize = parts[g][0][b][2]
                 results[g][b] = finalize(_unstack([next(aggs) for _ in values], rv, meta.total))
@@ -778,6 +783,32 @@ def _build_dense_plan(
     return _Plan(fn=fn, uses_kernel=split is not None)
 
 
+def _record_member(rel, vals: sr.Field, incoming: Sequence[Factor], preds, out_attrs,
+                   codes: torch.Tensor) -> None:
+    """The shape record (``plans.member``) of one sparse contraction member:
+    its real and padded rows, carried γ lanes, gather and σ code columns,
+    the lift's bytes a row, each incoming message's elements, the output's
+    elements and the element sizes of codes and values.  A reader computes
+    the bytes the member must move from these with a formula of its own."""
+    rel_set = set(rel.attrs)
+    doms = dict(rel.domains)
+    for m in incoming:
+        doms.update(m.domains)
+    carried = dict.fromkeys(a for m in incoming for a in m.attrs if a not in rel_set)
+    leaves = sr.leaves(vals)
+    row_elems = sum(leaf[0].numel() for leaf in leaves)
+    trace.record(
+        "plans.member", rel=rel.name, num_rows=rel.num_rows, row_bucket=rel.row_bucket,
+        lanes=int(np.prod([doms[a] for a in carried])),
+        gather_cols=sum(1 for m in incoming if any(a in rel_set for a in m.attrs)),
+        sigma_cols=len(preds), lift_row_bytes=sum(leaf[0].numel() * leaf.element_size()
+                                                  for leaf in leaves),
+        in_elems=[sum(leaf.numel() for leaf in sr.leaves(m.field)) for m in incoming],
+        out_elems=int(np.prod([doms[a] for a in out_attrs])) * row_elems,
+        code_bytes=codes.element_size(), value_bytes=leaves[0].element_size(),
+    )
+
+
 # ---------------------------------------------------------------------------
 # the cache
 # ---------------------------------------------------------------------------
@@ -905,42 +936,50 @@ class PlanCache:
     ) -> Factor:
         """One sparse contraction; ``code_order=False`` keeps its slab in row
         order (a delta's codes are used once: no order is worth keeping)."""
-        shards = self._shard_arity(rel)
-        key = self.sparse_key(rel, vals, incoming, preds, out_attrs)
-        if shards > 1:
-            key = key + (("shards", shards),)
-        elif not code_order:
-            key = key + (("code_order", False),)
-        entry = self._plans.get(key)
-        built = entry is None
-        if built:
-            doms = dict(rel.domains)
-            for m in incoming:
-                doms.update(m.domains)
-            build_args = (
-                self.ring, rel.attrs, doms, tuple(m.attrs for m in incoming),
-                tuple(p.attr for p in preds), tuple(out_attrs), rel.row_bucket,
-            )
-            entry = (
-                _build_sharded_sparse_plan(*build_args, self.mesh, self.mesh_axis)
-                if shards > 1 else _build_sparse_plan(*build_args, code_order)
-            )
-            self._plans.put(key, entry)
-        rel_set = set(rel.attrs)
-        in_fields, in_idx = [], []
-        for m in incoming:
-            shared = tuple(a for a in m.attrs if a in rel_set)
-            in_fields.append(m.field)
-            in_idx.append(catalog.dev_flat_codes(rel, shared, self.device)[0] if shared else None)
-        pred_masks = tuple(self.mask_dev(p) for p in preds)
-        pred_codes = tuple(catalog.dev_flat_codes(rel, (p.attr,), self.device)[0] for p in preds)
-        local_out = tuple(a for a in out_attrs if a in rel_set)
-        seg_idx, _ = catalog.dev_flat_codes(rel, local_out, self.device)
-        out = entry.fn(vals, tuple(in_fields), tuple(in_idx), pred_masks, pred_codes, seg_idx)
-        self._account(entry.uses_kernel, built, stats)
-        if entry.sharded:
-            self._account_sharded(entry, (rel,))
-        return out
+        with trace.span("plans.contraction", route="sparse", members=1, rel=rel.name,
+                        rows=rel.num_rows):
+            shards = self._shard_arity(rel)
+            key = self.sparse_key(rel, vals, incoming, preds, out_attrs)
+            if shards > 1:
+                key = key + (("shards", shards),)
+            elif not code_order:
+                key = key + (("code_order", False),)
+            entry = self._plans.get(key)
+            built = entry is None
+            if built:
+                with trace.span("plans.build"):
+                    doms = dict(rel.domains)
+                    for m in incoming:
+                        doms.update(m.domains)
+                    build_args = (
+                        self.ring, rel.attrs, doms, tuple(m.attrs for m in incoming),
+                        tuple(p.attr for p in preds), tuple(out_attrs), rel.row_bucket,
+                    )
+                    entry = (
+                        _build_sharded_sparse_plan(*build_args, self.mesh, self.mesh_axis)
+                        if shards > 1 else _build_sparse_plan(*build_args, code_order)
+                    )
+                    self._plans.put(key, entry)
+            rel_set = set(rel.attrs)
+            in_fields, in_idx = [], []
+            with trace.span("plans.codes"):
+                for m in incoming:
+                    shared = tuple(a for a in m.attrs if a in rel_set)
+                    in_fields.append(m.field)
+                    in_idx.append(catalog.dev_flat_codes(rel, shared, self.device)[0]
+                                  if shared else None)
+                pred_masks = tuple(self.mask_dev(p) for p in preds)
+                pred_codes = tuple(catalog.dev_flat_codes(rel, (p.attr,), self.device)[0]
+                                   for p in preds)
+                local_out = tuple(a for a in out_attrs if a in rel_set)
+                seg_idx, _ = catalog.dev_flat_codes(rel, local_out, self.device)
+            if trace.on():
+                _record_member(rel, vals, incoming, preds, out_attrs, seg_idx)
+            out = entry.fn(vals, tuple(in_fields), tuple(in_idx), pred_masks, pred_codes, seg_idx)
+            self._account(entry.uses_kernel, built, stats)
+            if entry.sharded:
+                self._account_sharded(entry, (rel,))
+            return out
 
     def run_level(
         self,
@@ -956,6 +995,13 @@ class PlanCache:
         single ``level_aggregate`` launch.  Returns the per-group factor lists
         in the caller's group and member order.
         """
+        with trace.span("plans.contraction", route="level",
+                        members=sum(len(items) for items in item_groups),
+                        rel=item_groups[0][0].rel.name,
+                        rows=max(items[0].rel.num_rows for items in item_groups)):
+            return self._run_level(catalog, item_groups, stats_groups)
+
+    def _run_level(self, catalog, item_groups, stats_groups) -> list[list[Factor]]:
         specs = [
             self._group_spec(items, stats_groups[i] if stats_groups else None)
             for i, items in enumerate(item_groups)
@@ -974,12 +1020,13 @@ class PlanCache:
         entry = self._plans.get(key)
         built = entry is None
         if built:
-            statics = tuple(specs[i].statics for i in order)
-            entry = (
-                _build_sharded_level_plan(self.ring, statics, self.mesh, self.mesh_axis)
-                if shards > 1 else _build_level_plan(self.ring, statics)
-            )
-            self._plans.put(key, entry)
+            with trace.span("plans.build"):
+                statics = tuple(specs[i].statics for i in order)
+                entry = (
+                    _build_sharded_level_plan(self.ring, statics, self.mesh, self.mesh_axis)
+                    if shards > 1 else _build_level_plan(self.ring, statics)
+                )
+                self._plans.put(key, entry)
         outs = entry.fn(tuple(self._group_args(catalog, specs[i]) for i in order))
         if entry.uses_kernel:
             self.stats.fused_level_launches += 1
@@ -1045,6 +1092,11 @@ class PlanCache:
     def _run_batch(self, catalog, items: Sequence[AbsorbItem], stats_list: Sequence | None,
                    calibration: bool) -> list[Factor]:
         assert len(items) >= 2, "batch of one: use run_sparse"
+        with trace.span("plans.contraction", route="batch", members=len(items),
+                        rel=items[0].rel.name, rows=items[0].rel.num_rows):
+            return self._run_batch_group(catalog, items, stats_list, calibration)
+
+    def _run_batch_group(self, catalog, items, stats_list, calibration) -> list[Factor]:
         spec = self._group_spec(items, stats_list)
         rel = spec.items[0].rel
         shards = self._shard_arity(rel)
@@ -1052,11 +1104,13 @@ class PlanCache:
         entry = self._plans.get(key)
         built = entry is None
         if built:
-            entry = (
-                _build_sharded_level_plan(self.ring, (spec.statics,), self.mesh, self.mesh_axis)
-                if shards > 1 else _build_level_plan(self.ring, (spec.statics,))
-            )
-            self._plans.put(key, entry)
+            with trace.span("plans.build"):
+                entry = (
+                    _build_sharded_level_plan(self.ring, (spec.statics,), self.mesh,
+                                              self.mesh_axis)
+                    if shards > 1 else _build_level_plan(self.ring, (spec.statics,))
+                )
+                self._plans.put(key, entry)
         (outs,) = entry.fn((self._group_args(catalog, spec),))
         if entry.sharded:
             self._account_sharded(entry, (rel,))
@@ -1129,16 +1183,21 @@ class PlanCache:
         items = spec.items
         rel = items[0].rel
         rel_set = set(rel.attrs)
-        in_idx = tuple(
-            catalog.dev_flat_codes(rel, tuple(a for a in m.attrs if a in rel_set), self.device)[0]
-            if any(a in rel_set for a in m.attrs) else None
-            for m in items[0].incoming
-        )
-        pred_codes = tuple(
-            catalog.dev_flat_codes(rel, (p.attr,), self.device)[0] for p in items[0].preds
-        )
-        local_out = tuple(a for a in items[0].out_attrs if a in rel_set)
-        seg_idx, _ = catalog.dev_flat_codes(rel, local_out, self.device)
+        with trace.span("plans.codes"):
+            in_idx = tuple(
+                catalog.dev_flat_codes(rel, tuple(a for a in m.attrs if a in rel_set),
+                                       self.device)[0]
+                if any(a in rel_set for a in m.attrs) else None
+                for m in items[0].incoming
+            )
+            pred_codes = tuple(
+                catalog.dev_flat_codes(rel, (p.attr,), self.device)[0] for p in items[0].preds
+            )
+            local_out = tuple(a for a in items[0].out_attrs if a in rel_set)
+            seg_idx, _ = catalog.dev_flat_codes(rel, local_out, self.device)
+        if trace.on():
+            for it in items:
+                _record_member(it.rel, it.vals, it.incoming, it.preds, it.out_attrs, seg_idx)
         return (
             tuple(it.vals for it in items),
             tuple(tuple(m.field for m in it.incoming) for it in items),
@@ -1167,14 +1226,17 @@ class PlanCache:
             )
         pred_spec = tuple(pred_spec)
         key = ("dense", self.ring.name, structs, pred_spec, tuple(out_attrs))
-        entry = self._plans.get(key)
-        built = entry is None
-        if built:
-            entry = _build_dense_plan(self.ring, structs, pred_spec, tuple(out_attrs))
-            self._plans.put(key, entry)
-        out = entry.fn(tuple(f.field for f in factors), tuple(self.mask_dev(p) for p in preds))
-        self._account(entry.uses_kernel, built, stats)
-        return out
+        with trace.span("plans.contraction", route="dense", members=1):
+            entry = self._plans.get(key)
+            built = entry is None
+            if built:
+                with trace.span("plans.build"):
+                    entry = _build_dense_plan(self.ring, structs, pred_spec, tuple(out_attrs))
+                    self._plans.put(key, entry)
+            out = entry.fn(tuple(f.field for f in factors),
+                           tuple(self.mask_dev(p) for p in preds))
+            self._account(entry.uses_kernel, built, stats)
+            return out
 
     def __len__(self):
         return len(self._plans)

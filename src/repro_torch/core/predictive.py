@@ -40,6 +40,7 @@ import time
 import warnings
 from typing import TYPE_CHECKING
 
+from repro_torch import trace
 from .plans import UNION_BUDGET, calibration_union_budget
 from .query import Query
 
@@ -361,12 +362,14 @@ class ThinkTimePolicy:
 
     def run(self, session: "Session", budget: ThinkTimeBudget) -> int:
         t0 = time.perf_counter()
-        done = session.scheduler.run(
-            budget_messages=budget.messages,
-            budget_seconds=budget.seconds,
-            session=session.id,
-            viz=budget.viz,
-        )
+        with trace.span("think.drain") as sp:
+            done = session.scheduler.run(
+                budget_messages=budget.messages,
+                budget_seconds=budget.seconds,
+                session=session.id,
+                viz=budget.viz,
+            )
+            sp.set(edges=done)
         if budget.slack(t0, done):
             self.extras(session, budget, t0)
         return done

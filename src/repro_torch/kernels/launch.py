@@ -30,6 +30,8 @@ import functools
 
 import torch
 
+from repro_torch import trace
+
 from . import build
 
 _P = ctypes.c_void_p
@@ -79,15 +81,18 @@ class Kernel:
         self._stream = torch._C._cuda_getCurrentRawStream
         return fn
 
-    def __call__(self, device: torch.device, *args) -> None:
-        """Launch on the current stream of ``device``; raise on a CUDA error."""
+    def __call__(self, device: torch.device, *args, members: int = 1) -> None:
+        """Launch on the current stream of ``device``; raise on a CUDA error.
+        ``members`` (the messages of a segment launch's table) is recorded
+        on the launch's ``kernels.launch`` span."""
         fn = self._fn or self._bind()
         index = device.index
-        if torch.cuda.current_device() == index:
-            rc = fn(*args, self._stream(index))
-        else:
-            with torch.cuda.device(index):
+        with trace.span("kernels.launch", symbol=self.symbol, members=members):
+            if torch.cuda.current_device() == index:
                 rc = fn(*args, self._stream(index))
+            else:
+                with torch.cuda.device(index):
+                    rc = fn(*args, self._stream(index))
         if rc:
             build.check(self._lib, self.symbol, rc)
 

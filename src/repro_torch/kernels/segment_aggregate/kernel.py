@@ -70,5 +70,5 @@ def launch(name: str, members: list, op: str) -> int:
     launches = _launch.pack_members(packed)
     for one in launches:
         ws = kern.scratch(device, one)[0] if one.ws else None
-        kern(device, ctypes.addressof(one.table), OP_CODES[op], ws)
+        kern(device, ctypes.addressof(one.table), OP_CODES[op], ws, members=one.table.count)
     return len(launches)

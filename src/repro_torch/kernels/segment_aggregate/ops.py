@@ -42,6 +42,7 @@ import weakref
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import launch as _launch
 
 from . import kernel
@@ -248,6 +249,12 @@ def _launch_members(name: str, items: list, op: str) -> None:
         order = cached_row_order(codes, g, geom.chunk) if sort else None
         members.append((codes, values, out, geom, order, ordered))
         MEMBERS["sort_ordered" if ordered else geom.name] += 1
+        if trace.on():
+            trace.record("kernels.segment", kernel=name, n=n, g=g, v=v,
+                         elem_bytes=values.element_size(), regime=geom.name, ordered=bool(ordered),
+                         n_items=order.n_items if sort else 0,
+                         table_bytes=order.table.numel() * order.table.element_size() if sort
+                         else 0)
     LAUNCHES[name] += kernel.launch(name, members, op)
 
 

@@ -409,6 +409,43 @@ def test_cuda_batched_fanout_matches_cpu_one_level_launch_per_group(cuda):
         torch.testing.assert_close(g.factor.field.cpu(), c.factor.field, rtol=1e-5, atol=0)
 
 
+def test_cuda_segment_launches_link_to_kernels_launch_spans(cuda):
+    """Under a CUDA profiler, every kernel 1-2 launch (made through
+    ``ctypes``) links by correlation id to the ``kernels.launch`` span open
+    on the host when it was launched, and the spans add no device-side
+    annotation to the trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+    from repro_torch.core import Drill, SetFilter
+
+    cat = _small_salesforce()
+    events = (SetFilter("state", values=(0, 1, 2, 3, 4), source="by_state"),
+              Drill("by_stage", "title"))
+    # a first run loads every kernel the second launches (the profiler links
+    # a kernel's first launch to CUDA's lazy loading of its function)
+    for _ in range(2):
+        sess = Treant(cat, ring=sr.SUM, device=cuda).open_session(_live_spec(), name="s")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for ev in events:
+                sess.apply(ev)
+            torch.cuda.synchronize()
+    trace.take()
+    kineto = prof.profiler.kineto_results.events()
+    host = {e.correlation_id(): e for e in kineto
+            if e.device_type() == DeviceType.CPU and not e.name().startswith("cu")}
+    device = [e for e in kineto if e.device_type() == DeviceType.CUDA]
+    segment = [e for e in device if "segment_aggregate" in e.name()]
+    assert segment
+    linked = [host.get(e.linked_correlation_id()) for e in segment]
+    assert [h.name() if h is not None else None for h in linked] == ["kernels.launch"] * len(
+        segment)
+    program = ("session.", "cjt.", "plans.", "kernels.")
+    assert not [e.name() for e in device if e.name().startswith(program)]
+
+
 def test_cuda_flush_tick_matches_cpu(cuda):
     runs = {}
     for dev in ("cpu", "cuda"):
