@@ -33,7 +33,13 @@ CUDA toolkit.  Phases:
    record shapes, M also as a transposed view, on integer-valued data:
    exact; each call timed beside its bound, its plain version and
    ``torch.matmul``.  Two calls on gamma-valued data must give the same
-   bits.  Then the host cost of one contract wrapper call, step by step;
+   bits.  Then the host cost of one contract wrapper call, step by step.
+   Then a fused member (a recipe: lift, gathered messages, σ) at the brush
+   shape (2^23 rows, G = 17, 52 × 12 lanes from two messages, two σ
+   predicates) must give the bits of kernel 1 on the slab its recipe
+   materializes; both are timed (``ms``, ``device_ms``), beside the
+   materialization's own time and the fused member's byte and FP32 bounds
+   (the larger is its bound);
 4. slice phase: the quickstart sequence at a deployment's size
    (``schema.salesforce`` with every table x50: 10M opportunities, Opp row
    bucket 2^24) on ``cuda``: two dashboard registrations, the role filter,
@@ -101,9 +107,13 @@ CUDA toolkit.  Phases:
     store probe; timed answers equal cold engines on the card.  The warm
     pass runs once more at full size with every segment-kernel launch held
     against its plain version on the same tensors (float sums to a relative
-    max(1e-5, 4·√n·2^-24) for a segment of n rows), and a
-    level-plan call must have split its launch in two or more (the operands
-    past ``plans.ROWWISE_MAX_ELEMS``).  The warm pass at 300,000 flights
+    max(1e-5, 4·√n·2^-24) for a segment of n rows; a fused member's
+    recipe materialized a block of lanes at a time), and no level launch of
+    several slab members may hold slabs past ``plans.ROWWISE_MAX_ELEMS``
+    (fused members hold none).  A MOMENTS calibration over the same
+    flights, whose members keep their slabs, must split its level-plan
+    call over several launches, each held against its plain version.  The
+    warm pass at 300,000 flights
     gives the same counters and answers on cuda and on the CPU;
 13. serving phase, on the same catalog: ``benchmarks/bench_serve.py``'s
     drag storm through ``TreantServer`` — 64 sessions over ``serve_spec()``
@@ -222,7 +232,8 @@ CUDA toolkit.  Phases:
 
 Each phase that drives a path prints, on a line of its own, the messages
 the segment kernels reduced by regime (thread, warp, sort through the row
-order, sort in code order: ``ops.MEMBERS``).
+order, sort in code order: ``ops.MEMBERS``), and of them the fused members
+(``ops.FUSED_MEMBERS``).
 
 Two times go with every kernel: ``ms``, wrapper calls back to back between
 CUDA events (what the main path pays, host cost included), and
@@ -254,6 +265,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
+FP32_OPS_PER_S = 33.5e12           # ... FP32 operations a second, an FMA counted once
 FP32_FLOPS = 67e12                 # H100 SXM float32 rate outside the tensor cores
 SCALE = 50                         # x the generator's default table sizes
 DENSE_ROWS = 100_000               # every x50 dimension table is at most this
@@ -429,18 +441,43 @@ def read_launches(K) -> dict:
 def print_regimes(K, label: str) -> dict:
     """Print and return the messages the segment kernels reduced since the
     counts were last set to 0, by regime: thread, warp, sort read through
-    the row order (``sort``) and sort in code order (``sort_ordered``)."""
+    the row order (``sort``) and sort in code order (``sort_ordered``); and
+    of them the fused members."""
     regimes = dict(K.seg_ops.MEMBERS)
-    print(f"  {label}: segment-kernel messages by regime {regimes}", flush=True)
+    print(f"  {label}: segment-kernel messages by regime {regimes}, fused "
+          f"{dict(K.seg_ops.FUSED_MEMBERS)}", flush=True)
     return regimes
+
+
+def lanes_of(values) -> int:
+    """V of a message: its slab's columns, or its recipe's lanes."""
+    return values.lanes if hasattr(values, "lanes") else values.shape[-1]
+
+
+def materialize(torch, ref, recipe, zero: float, lo: int = 0, hi: int | None = None,
+                block: int = 64):
+    """Lanes [lo, hi) of a recipe's slab, as ``ref.recipe_values`` writes
+    it, a block of lanes at a time (the temporaries of a whole 2^23 x 624
+    recipe would fill the card)."""
+    hi = recipe.lanes if hi is None else hi
+    if not recipe.messages:
+        return ref.recipe_values(recipe, zero)
+    out = torch.empty((recipe.lift.shape[0], hi - lo), dtype=torch.float32,
+                      device=recipe.lift.device)
+    for j in range(lo, hi, block):
+        k = min(hi, j + block)
+        part = dataclasses.replace(recipe, lanes=k - j, messages=tuple(
+            (i, t, lanes[j:k]) for i, t, lanes in recipe.messages))
+        out[:, j - lo:k - lo] = ref.recipe_values(part, zero)
+    return out
 
 
 def aligned_codes(ops, codes, values, g: int, ordered: bool):
     """The codes of ``values``' rows: ``codes`` itself, or in its row order
-    when the values arrive in code order."""
+    when the values (a recipe's row columns) arrive in code order."""
     if not ordered:
         return codes
-    return codes.index_select(0, ops.code_order(codes, g, values.shape[1]).perm)
+    return codes.index_select(0, ops.code_order(codes, g, lanes_of(values)).perm)
 
 
 @contextlib.contextmanager
@@ -584,6 +621,76 @@ def kernel_phase(torch, ops, ref, report: dict) -> None:
                   f"permutation {r['permutation_ms']:.4f} ms",
                   flush=True)
     report["kernel_phase"] = rows
+
+
+FUSED_SHAPE = dict(n=1 << 23, g=17, tables=((360, 52), (365, 12)), domains=(17, 15))
+
+
+def fused_bounds_ms(n: int, g: int, v: int, table_bytes: int, msgs: int,
+                    preds: int) -> tuple[float, float]:
+    """A fused member's two least times: its bytes (codes, lift, one index
+    per message and one code column per σ predicate, 4 B a row each; its
+    tables and lane columns; the output) at the device memory rate, and its
+    N·V·(K + 1) FP32 operations (K ⊗ and one ⊕ an element).  The longer is
+    its bound."""
+    t_bytes = (n * 4 * (2 + msgs + preds) + table_bytes + g * v * 4) / HBM_BYTES_PER_S * 1e3
+    return t_bytes, n * v * (msgs + 1) / FP32_OPS_PER_S * 1e3
+
+
+def fused_member_phase(torch, ops, ref, report: dict) -> None:
+    """The brush's widest member as a recipe: Flights' 2^23 rows, G = 17
+    (its carriers), the lanes (state, month) = 52 × 12 from Origin's 360 × 52
+    and Dates' 365 × 12 messages, σ on two of Flights' columns.  Its output
+    must be the bits of kernel 1 on the slab its recipe materializes; both
+    are timed, and so is the materialization (what the rowwise stage
+    writes)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    n, g = FUSED_SHAPE["n"], FUSED_SHAPE["g"]
+
+    def ints(hi, size=(n,)):
+        return torch.randint(0, hi, size, generator=gen, device=dev, dtype=torch.int32)
+
+    codes = ints(g)
+    lift = torch.rand(n, generator=gen, device=dev) * 100
+    messages, dims = [], [d for _, d in FUSED_SHAPE["tables"]]
+    v = dims[0] * dims[1]
+    for k, (rows, cols) in enumerate(FUSED_SHAPE["tables"]):
+        table = torch.rand((rows, cols), generator=gen, device=dev)
+        lanes = torch.arange(v, device=dev, dtype=torch.int32)
+        messages.append((ints(rows), table, lanes // dims[1] if k == 0 else lanes % dims[1]))
+    preds = tuple((ints(d), torch.rand(d, generator=gen, device=dev) < 0.7)
+                  for d in FUSED_SHAPE["domains"])
+    rc = ops.Recipe(lift, tuple(messages), preds, lanes=v)
+    got = ops.aggregate_op(codes, rc, g)
+    t0 = time.perf_counter()
+    slab = materialize(torch, ref, rc, 0.0)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ops.aggregate_op(codes, slab, g)),
+          "a fused member gives other bits than its slab")
+    table_bytes = sum(t.numel() * 4 + lanes.numel() * 4 for _, t, lanes in messages)
+    t_bytes, t_ops = fused_bounds_ms(n, g, v, table_bytes, len(messages), len(preds))
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    row = dict(
+        kernel="segment_aggregate", n=n, g=g, v=v, op="sum", msgs=len(messages),
+        preds=len(preds), regime=ops._launch.segment_geometry(n, g, v).name,
+        materialize_s=time.perf_counter() - t0,
+        fused_ms=time_ms(lambda: ops.aggregate_op(codes, rc, g)),
+        fused_device_ms=device_ms(lambda c: ops.aggregate_op(c, rc, g), (codes,)),
+        slab_ms=time_ms(lambda: ops.aggregate_op(codes, slab, g), 3, 3),
+        slab_device_ms=device_ms(lambda c, x: ops.aggregate_op(c, x, g), (codes, slab), 3, 3),
+        slab_bound_ms=bound_ms(n, v, g),
+        bound_ms=bound, bound_by=by, bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
+    )
+    del slab
+    row["rowwise_ms"] = time_ms(lambda: materialize(torch, ref, rc, 0.0), 1, 3)
+    print(f"  fused member N={n} G={g} V={v} ({row['regime']}): kernel {row['fused_ms']:.4f} ms "
+          f"(device {row['fused_device_ms']:.4f}), bound {bound:.4f} ms ({by}; bytes "
+          f"{row['bytes_bound_ms']:.4f}, FP32 {row['ops_bound_ms']:.4f}); kernel 1 on its slab "
+          f"{row['slab_ms']:.4f} ms (device {row['slab_device_ms']:.4f}, bound "
+          f"{row['slab_bound_ms']:.4f}); materializing the slab {row['rowwise_ms']:.4f} ms",
+          flush=True)
+    report["fused_member"] = row
 
 
 def same_bits_phase(torch, ops, ref, main: list, codes_for) -> dict:
@@ -952,11 +1059,15 @@ def slice_phase(torch, np, K, rt, schema, report: dict) -> dict:
 
     def recording_launch(name, members, op):
         for codes, values, out, geom, _, ordered in members:
-            shapes.append((name, int(values.shape[0]), int(values.shape[1]), int(out.shape[0]),
+            shapes.append((name, int(codes.shape[0]), int(out.shape[1]), int(out.shape[0]),
                            op, geom.name, ordered))
-        size = sum(m[1].numel() for m in members)
+        size = sum(m[0].numel() * m[2].shape[1] for m in members)
         if name not in captured or size > captured[name][1]:
-            captured[name] = ([(c.clone(), x.clone(), int(o.shape[0]), ordered)
+            # a fused member is kept as the slab its recipe materializes
+            zero = K.seg_ref.IDENTITY[op]
+            captured[name] = ([(c.clone(), x.clone() if isinstance(x, torch.Tensor)
+                                else materialize(torch, K.seg_ref, x, zero),
+                                int(o.shape[0]), ordered)
                                for c, x, o, _, _, ordered in members], size, op)
         return real_launch(name, members, op)
 
@@ -1842,6 +1953,11 @@ EXPLORE_CPU_FLIGHTS = 300_000
 BRUSH_DIMS = (("carrier_group", "by_carrier"), ("delay_bucket", "by_delay"),
               ("month", "by_month"))
 EXPLORE_ROUNDS = 2                 # timed passes per leg, after one warm pass
+# a MOMENTS calibration over the explore catalog: its Flights members keep
+# their slabs (3 leaves of 24, 48 and 72 lanes: Dates, Carrier, Airport), and
+# at the 2^23 row bucket the last two pass plans.ROWWISE_MAX_ELEMS together,
+# so the level-plan call splits its launch
+EXPLORE_SPLIT_GROUP_BY = ("airport_size", "month", "carrier_group")
 
 
 def explore_spec(L):
@@ -1947,16 +2063,20 @@ def hold_plain(torch, ref, codes, values, g: int, op: str, got, exact: bool,
     the exact one; λ·√n·u is the probabilistic bound of such a sum's
     rounding error (Higham and Mary, 2019), λ = ``AUDIT_LAMBDA``.  Returns
     the largest absolute and relative differences and the rows of the
-    segment with the largest relative one."""
-    if values.dim() == 1:
+    segment with the largest relative one.  A fused member's recipe is
+    materialized a block of lanes at a time (``materialize``)."""
+    fused = not isinstance(values, torch.Tensor)
+    if not fused and values.dim() == 1:
         values, got = values[:, None], got[:, None]
-    step = max(1, AUDIT_BLOCK_ELEMS // max(values.shape[0], 1))
+    n, v = codes.shape[0], lanes_of(values)
+    step = max(1, AUDIT_BLOCK_ELEMS // max(n, 1))
     rows = torch.bincount(codes[(codes >= 0) & (codes < g)].long(), minlength=g)
     tol = (AUDIT_LAMBDA * rows.double().sqrt() * 2.0 ** -24).clamp_min(AUDIT_RTOL)[:, None]
     err, rel, at = 0.0, 0.0, 0
-    for j in range(0, values.shape[1], step):
-        part, want = got[:, j:j + step], ref.segment_aggregate_ref(
-            codes, values[:, j:j + step], g, op)
+    for j in range(0, v, step):
+        block = (materialize(torch, ref, values, ref.IDENTITY[op], j, min(v, j + step))
+                 if fused else values[:, j:j + step])
+        part, want = got[:, j:j + step], ref.segment_aggregate_ref(codes, block, g, op)
         if exact:
             check(torch.equal(part, want), f"{what} disagrees with its plain version")
         r = torch.where(part == want, 0.0, (part - want).abs().double() / want.abs())
@@ -1988,13 +2108,15 @@ def kernel_audit(torch, K, L, audit: dict, exact: bool):
     real_runs = {name: getattr(L.PlanCache, name) for name in ("run_level", "run_sparse_batch")}
     for name in SEGMENT:
         audit[name] = dict(checked=0, widest=(0, 0), max_abs_err=0.0, max_rel_err=0.0,
-                           rows_at_max_rel=0)
+                           rows_at_max_rel=0, fused=0)
     audit["level_runs"] = []
+    audit["over_limit"] = 0        # level launches of several slabs past ROWWISE_MAX_ELEMS
     running: list = []             # launches of the level-plan calls in progress
 
-    def note(name, rows, lanes, errs):
+    def note(name, rows, lanes, errs, fused):
         a = audit[name]
         a["checked"] += 1
+        a["fused"] += fused
         a["widest"] = max(a["widest"], (rows, lanes), key=lambda w: w[0] * w[1])
         for err, rel, at in errs:
             a["max_abs_err"] = max(a["max_abs_err"], err)
@@ -2003,12 +2125,13 @@ def kernel_audit(torch, K, L, audit: dict, exact: bool):
 
     def aggregate_op(codes, values, num_segments, op="sum", ordered=False):
         out = real_agg(codes, values, num_segments, op, ordered=ordered)
-        aligned = aligned_codes(ops, codes, values.reshape(codes.shape[0], -1), num_segments,
-                                ordered)
+        fused = isinstance(values, ops.Recipe)
+        aligned = aligned_codes(ops, codes, values if fused else values.reshape(
+            codes.shape[0], -1), num_segments, ordered)
         errs = [hold_plain(torch, ref, aligned, values, num_segments, op, out, exact,
                            f"segment_aggregate {op} N={codes.shape[0]} G={num_segments}")]
-        note("segment_aggregate", codes.shape[0], values.shape[-1] if values.dim() > 1 else 1,
-             errs)
+        note("segment_aggregate", codes.shape[0],
+             lanes_of(values) if fused or values.dim() > 1 else 1, errs, int(fused))
         return out
 
     def level_aggregate(items, op="sum"):
@@ -2017,10 +2140,14 @@ def kernel_audit(torch, K, L, audit: dict, exact: bool):
             running[-1] += 1
         errs = [hold_plain(torch, ref, codes, values, g, op, o, exact,
                            f"level_segment_aggregate {op} member N={codes.shape[0]} G={g} "
-                           f"V={values.shape[1]} of {len(items)}")
+                           f"V={lanes_of(values)} of {len(items)}")
                 for (codes, values, g), o in zip(plain_items(ops, items), outs)]
+        slabs = [m for m in items if not isinstance(m[1], ops.Recipe)]
+        audit["over_limit"] += len(slabs) > 1 and (
+            sum(m[0].shape[0] for m in slabs) * max(m[1].shape[1] for m in slabs)
+            > L.plans.ROWWISE_MAX_ELEMS)
         note("level_segment_aggregate", sum(m[0].shape[0] for m in items),
-             max(m[1].shape[1] for m in items), errs)
+             max(lanes_of(m[1]) for m in items), errs, len(items) - len(slabs))
         return outs
 
     def counted(real):
@@ -2047,10 +2174,10 @@ def kernel_audit(torch, K, L, audit: dict, exact: bool):
 def print_audit(label: str, audit: dict, seconds: float) -> None:
     for name in SEGMENT:
         a = audit[name]
-        print(f"{label}: {name}: {a['checked']} launches held against the plain version, "
-              f"the widest {a['widest'][0]} rows x {a['widest'][1]} lanes, max abs err "
-              f"{a['max_abs_err']}, max relative err {a['max_rel_err']} (a segment of "
-              f"{a['rows_at_max_rel']} rows)", flush=True)
+        print(f"{label}: {name}: {a['checked']} launches held against the plain version "
+              f"({a['fused']} fused members), the widest {a['widest'][0]} rows x "
+              f"{a['widest'][1]} lanes, max abs err {a['max_abs_err']}, max relative err "
+              f"{a['max_rel_err']} (a segment of {a['rows_at_max_rel']} rows)", flush=True)
     splits = audit["split_runs"]
     print(f"{label}: {len(audit['level_runs'])} level-plan calls, {len(splits)} of them split "
           f"(up to {max(splits, default=1)} launches in one call); audit {seconds:.1f} s",
@@ -2246,7 +2373,24 @@ def explore_phase(torch, np, K, L, schema, report: dict) -> dict:
     print_audit("explore", audit, time.perf_counter() - t0)
     for name in SEGMENT:
         check(audit[name]["checked"] > 0, f"explore: no {name} launch was held")
-    check(bool(audit["split_runs"]), "explore: no level-plan call split its launch")
+    check(audit["over_limit"] == 0,
+          f"explore: {audit['over_limit']} level launches held slabs past ROWWISE_MAX_ELEMS")
+    # the split of a level launch: a MOMENTS calibration (slab members only)
+    gc.collect()
+    torch.cuda.empty_cache()
+    split: dict = {}
+    t0 = time.perf_counter()
+    with kernel_audit(torch, K, L, split, exact=False):
+        t = L.Treant(cat, ring=L.sr.MOMENTS, device="cuda", use_plans=True)
+        q = L.Query.make(cat, ring="moments", measure=("Flights", "dep_delay"),
+                         group_by=EXPLORE_SPLIT_GROUP_BY)
+        t.engine_for(q.ring_name, q.measure).calibrate(q)
+        del t
+    print_audit("explore moments", split, time.perf_counter() - t0)
+    check(bool(split["split_runs"]), "explore: the MOMENTS level-plan call did not split its "
+          f"launch: {split['level_runs']}")
+    check(split["level_segment_aggregate"]["fused"] == 0,
+          "explore: a MOMENTS member was fused")
     t0 = time.perf_counter()
     small = schema.flight(n_flights=EXPLORE_CPU_FLIGHTS)
     cpu = explore_drive(torch, K, L, small, "cpu", rounds=0)
@@ -2269,6 +2413,7 @@ def explore_phase(torch, np, K, L, schema, report: dict) -> dict:
         timed_fanout_ms={"A": fanout("A"), "B": fanout("B")},
         median_timed_fanout_ms={leg: statistics.median(fanout(leg)) for leg in ("A", "B")},
         cold_checked=n, cpu_flights=EXPLORE_CPU_FLIGHTS, cpu_s=cpu_s, audit=audit,
+        split_audit=split,
     )
     print(f"explore: median timed fan-out {report['explore']['median_timed_fanout_ms']['A']:.3f}"
           f" ms (leg A, σ prefetch), {report['explore']['median_timed_fanout_ms']['B']:.3f} ms "
@@ -4200,6 +4345,7 @@ def main() -> int:
         jt_from_catalog, naive_cube_cost,
     )
     from repro_torch.core import distributed as dist
+    from repro_torch.core import plans as core_plans
     from repro_torch.core import semiring as sr
     from repro_torch.kernels import build, launch
     from repro_torch.kernels.segment_aggregate import kernel as seg_kernel
@@ -4244,6 +4390,7 @@ def main() -> int:
         PredictiveThinkTime=PredictiveThinkTime, TreantServer=TreantServer, ServeStats=ServeStats,
         Query=Query, Catalog=Catalog, build_cube=build_cube, naive_cube_cost=naive_cube_cost,
         flight=schema.flight, dist=dist, ShardMesh=dist.ShardMesh, row_bucket=row_bucket,
+        plans=core_plans,
     )
     M = types.SimpleNamespace(FactorizedLinearRegression=FactorizedLinearRegression,
                               FeatureSpec=FeatureSpec)
@@ -4267,6 +4414,8 @@ def main() -> int:
         contract_kernel_phase(torch, K, report)
         print("host cost of a contract wrapper call:", flush=True)
         host_cost_phase(torch, K, report)
+        print("a fused member at the brush shape:", flush=True)
+        fused_member_phase(torch, seg_ops, seg_ref, report)
         rt = (Treant, Query, sr, mask_in, parse)
         sliced = slice_phase(torch, np, K, rt, schema, report)
         dense = dense_phase(torch, np, K, rt, sliced, report)

@@ -22,6 +22,16 @@ plan.  PyTorch runs eagerly, so nothing is traced or compiled here.
   flattened past its rows).  On a CUDA device those launch the hand-written kernels, always — there is no
   cost gate; on the CPU the same wrappers run their plain versions.  BOOL
   and int64 COUNT reduce with plain torch on both devices.
+- **Fused members.**  On a CUDA device, a kernel-route member whose ring
+  has one float32 leaf with no trailing dims and a ⊗ the kernels compute
+  (× or +), with at most ``launch.SEG_MAX_MESSAGES`` incoming messages and
+  ``SEG_MAX_PREDICATES`` σ predicates (:func:`recipe_route`), hands the
+  kernels a ``segment_ops.Recipe`` — the lift, each message's table, the
+  lanes' columns, the σ codes and masks — instead of running ``rowwise``:
+  the kernels compute each value where they would have read it, with the
+  slab's bits, and no (rows × lanes) field is written, so such a member is
+  never cut into row blocks and holds nothing until its level launch.
+  Every other member, and every member on the CPU, keeps the slab.
 - **Code-ordered slabs.**  On a CUDA device, a message that the segment
   kernels reduce segment-major (their sort regime) has its rowwise inputs
   (the lift's leaves, the gather indices, the σ row codes) permuted once
@@ -60,8 +70,9 @@ import torch
 
 from repro_torch import trace
 from repro_torch.kernels import costs as kernel_costs
-from repro_torch.kernels.launch import unit_strides
+from repro_torch.kernels.launch import SEG_MAX_MESSAGES, SEG_MAX_PREDICATES, unit_strides
 from repro_torch.kernels.segment_aggregate import ops as seg_ops
+from repro_torch.kernels.segment_aggregate.ref import IDENTITY
 from repro_torch.kernels.semiring_contract import ops as sc_ops
 from repro_torch.kernels.tropical_contract import ops as tc_ops
 from repro_torch.relational.relation import LRU, Predicate
@@ -187,6 +198,7 @@ class PlanStats:
     plans_built: int = 0     # structural misses → new plan callable
     plan_hits: int = 0       # executions served by a cached plan
     kernel_execs: int = 0    # executions whose ⊕-reduction takes the kernel route
+    fused_execs: int = 0     # ... of them handing the kernels a recipe, no rowwise field
     fallback_execs: int = 0  # executions reduced with plain torch
     # batched absorption (run_sparse_batch): one level_aggregate launch each
     batched_execs: int = 0        # batched calls dispatched
@@ -281,8 +293,12 @@ def slice_bin_cubes(items, stats: PlanStats | None = None) -> list[Factor]:
 class _Plan:
     fn: Callable
     uses_kernel: bool
+    # its kernel-route members hand the kernels a recipe on a CUDA device
+    # (sparse plans; level plans per group in group_fused)
+    fused: bool = False
     # level plans only: per-group kernel routing + Σ width of fused groups
     group_kernel: tuple = ()
+    group_fused: tuple = ()
     fused_messages: int = 0
     # mesh-sharded plans only: the body runs per shard and every output
     # factor is ⊕-folded; allreduce_bytes is the static Σ of those payloads
@@ -295,6 +311,43 @@ class _Plan:
 # sparse-bag plan: gather ⊗ rowwise → σ row mask → segment-⊕ → reshape
 # ---------------------------------------------------------------------------
 
+def recipe_route(ring: sr.Semiring, n_messages: int, n_preds: int) -> bool:
+    """Whether a kernel-route contraction of ``ring`` with ``n_messages``
+    incoming messages and ``n_preds`` σ predicates hands the segment
+    kernels a recipe on a CUDA device: the ring has one float32 leaf with no
+    trailing dims, a ⊗ they compute (``ring.kernel_mul``) and a 0̄ that is
+    their ⊕'s identity, and the counts are within ``SEG_MAX_MESSAGES`` and
+    ``SEG_MAX_PREDICATES``.  A lift with neither keeps its slab, which is
+    the lift itself (nothing to write, and the slab grids' vector loads).
+    It reads the ring and the counts alone."""
+    op = ring.kernel_segment_op
+    return (op is not None and ring.dtype == torch.float32 and tuple(ring.trailing) == (0,)
+            and ring.kernel_mul is not None and tuple(ring.zero_values) == (IDENTITY[op],)
+            and 0 < n_messages + n_preds
+            and n_messages <= SEG_MAX_MESSAGES and n_preds <= SEG_MAX_PREDICATES)
+
+
+def _lane_columns(steps, carried: tuple, doms: dict) -> list[np.ndarray]:
+    """For each incoming message, the column of its table (its shared attrs'
+    rows by its extra attrs' columns, row-major) that each carried lane
+    reads; the lanes are row-major over ``carried``."""
+    lanes = int(np.prod([doms[a] for a in carried])) if carried else 1
+    coords = (np.indices([doms[a] for a in carried]).reshape(len(carried), lanes) if carried
+              else np.zeros((0, 1), np.int64))
+    cols = []
+    for _, _, extra, _, _ in steps:
+        col = np.zeros(lanes, np.int64)
+        for a in extra:
+            col = col * doms[a] + coords[carried.index(a)]
+        cols.append(col.astype(np.int32))
+    return cols
+
+
+def _subsequence(part: tuple, whole: tuple) -> bool:
+    it = iter(whole)
+    return all(a in it for a in part)
+
+
 @dataclasses.dataclass(frozen=True)
 class _SparseMeta:
     """Static facts about one sparse contraction that the level plan needs
@@ -304,10 +357,23 @@ class _SparseMeta:
     use_kernel: bool
     code_order: bool                 # sort-regime slabs come in code order on the card
     plain_on_cpu: bool               # on the CPU the ring keeps its own segment_reduce
+    # the fused route on a CUDA device: the member's (Recipe, in code order?)
+    # from the plan's arguments, and the shape of its carried lanes; None
+    # where the member keeps the slab
+    recipe: Callable | None = None
+    lane_shape: tuple = ()
 
     def kernel_on(self, seg_idx: torch.Tensor) -> bool:
         """Whether the segment kernels' wrappers reduce this message."""
         return self.use_kernel and not (self.plain_on_cpu and seg_idx.device.type == "cpu")
+
+    def fused_on(self, seg_idx: torch.Tensor) -> bool:
+        """Whether the kernels compute this message's values from its recipe."""
+        return self.recipe is not None and seg_idx.device.type == "cuda"
+
+    def fused_field(self, agg: torch.Tensor) -> torch.Tensor:
+        """A fused member's reduced (total, lanes) output in its field's shape."""
+        return agg.reshape((self.total,) + self.lane_shape)
 
 
 def _sparse_plan_parts(
@@ -354,6 +420,13 @@ def _sparse_plan_parts(
     trailing = any(ring.trailing)
     code_order = code_order and use_kernel and not trailing
     out_shape = tuple(doms[a] for a in local_out)
+    # the fused route: each message's extra attrs lie in the carried lanes in
+    # their own order (as expand_rows_field reads them)
+    fuse = use_kernel and recipe_route(ring, len(steps), len(pred_attrs)) and all(
+        _subsequence(extra, want) for _, _, extra, _, want in steps)
+    lane_cols = _lane_columns(steps, carried, doms) if fuse else []
+    lane_cols_on: dict = {}        # device -> the lane columns there
+    add = ring.kernel_mul == "add"
 
     def rowwise(vals, in_fields, in_idx, pred_masks, pred_codes):
         rows = sr.leaves(vals)[0].shape[0]
@@ -396,14 +469,13 @@ def _sparse_plan_parts(
         row (the rowwise field holds rows × that)."""
         return lanes * sum(leaf[0].numel() for leaf in sr.leaves(vals))
 
-    def slab(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx, ordered=None):
-        """``(rowwise field, its leaves as (rows, V) value slabs, in code
-        order?)``: in code order when the route allows and the kernels
-        reduce the message segment-major (the inputs permuted once per
-        cached order), else in row order.  ``ordered`` None takes code order
-        on a CUDA device only (the CPU's plain version reads no order),
-        True wherever the route allows, False never."""
-        order = None
+    def in_order(vals, in_idx, pred_codes, seg_idx, ordered):
+        """The rowwise inputs (the lift's leaves, the gather indices, the σ
+        row codes) in code order when the route allows and the kernels
+        reduce the message segment-major (permuted once per cached order),
+        else as they are; and whether they are in code order.  ``ordered``
+        None takes code order on a CUDA device only (the CPU's plain version
+        reads no order), True wherever the route allows, False never."""
         if code_order and (seg_idx.is_cuda if ordered is None else ordered):
             with trace.span("plans.code_order"):
                 # every leaf is its own (rows, lanes) member of the reduction
@@ -411,19 +483,55 @@ def _sparse_plan_parts(
                 if order is not None:
                     leaves = sr.leaves(vals)
                     perm = seg_ops.in_code_order(seg_idx, order, (*leaves, *in_idx, *pred_codes))
-                    vals = sr.like(vals, perm[:len(leaves)])
-                    in_idx = perm[len(leaves):len(leaves) + len(in_idx)]
-                    pred_codes = perm[len(leaves) + len(in_idx):]
+                    return (sr.like(vals, perm[:len(leaves)]),
+                            perm[len(leaves):len(leaves) + len(in_idx)],
+                            perm[len(leaves) + len(in_idx):], True)
+        return vals, in_idx, pred_codes, False
+
+    def slab(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx, ordered=None):
+        """``(rowwise field, its leaves as (rows, V) value slabs, in code
+        order?)``: in code order as :func:`in_order` decides, else in row
+        order."""
+        vals, in_idx, pred_codes, ordered = in_order(vals, in_idx, pred_codes, seg_idx, ordered)
         with trace.span("plans.rowwise"):
             rv = rowwise(vals, in_fields, in_idx, pred_masks, pred_codes)
-            return rv, _slab(rv, seg_idx.shape[0]), order is not None
+            return rv, _slab(rv, seg_idx.shape[0]), ordered
+
+    def recipe(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx, ordered=None):
+        """``(segment_ops.Recipe, in code order?)``: what ``rowwise`` would
+        combine (its inputs in code order as :func:`in_order` decides, each
+        message's table as ``rowwise`` gathers it), for the kernels to
+        compute each value from."""
+        vals, in_idx, pred_codes, ordered = in_order(vals, in_idx, pred_codes, seg_idx, ordered)
+        with trace.span("plans.recipe"):
+            dev = seg_idx.device
+            cols = lane_cols_on.get(dev)
+            if cols is None:
+                cols = lane_cols_on[dev] = [torch.from_numpy(c).to(dev) for c in lane_cols]
+            messages = []
+            for (m_attrs, shared, extra, _, _), field, idx, lc in zip(steps, in_fields, in_idx,
+                                                                      cols):
+                mp = Factor(m_attrs, field, ring).project_to(shared + extra)
+                rows = int(np.prod([doms[a] for a in shared])) if shared else 1
+                messages.append((idx if shared else None,
+                                 mp.field.reshape(rows, -1).contiguous(), lc))
+            (lift,) = sr.leaves(vals)
+            return seg_ops.Recipe(lift.contiguous(), tuple(messages),
+                                  tuple(zip(pred_codes, pred_masks)), add=add,
+                                  lanes=lanes), ordered
 
     def reduce(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx, ordered=None):
-        if meta.kernel_on(seg_idx):
-            rv, values, in_order = slab(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx,
-                                        ordered)
+        if meta.fused_on(seg_idx):
+            rc, in_order_ = recipe(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx,
+                                   ordered)
             with trace.span("plans.reduce"):
-                return _unstack([seg_ops.aggregate_op(seg_idx, x, total, op=op, ordered=in_order)
+                return meta.fused_field(seg_ops.aggregate_op(seg_idx, rc, total, op=op,
+                                                             ordered=in_order_))
+        if meta.kernel_on(seg_idx):
+            rv, values, in_order_ = slab(vals, in_fields, in_idx, pred_masks, pred_codes,
+                                         seg_idx, ordered)
+            with trace.span("plans.reduce"):
+                return _unstack([seg_ops.aggregate_op(seg_idx, x, total, op=op, ordered=in_order_)
                                  for x in values], rv, total)
         with trace.span("plans.rowwise"):
             vals = rowwise(vals, in_fields, in_idx, pred_masks, pred_codes)
@@ -433,9 +541,9 @@ def _sparse_plan_parts(
     def fn(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx):
         # past ROWWISE_MAX_ELEMS rowwise elements, reduce a block of rows at a
         # time (in row order: a block is no cached codes tensor) and ⊕ the
-        # partial aggregates
+        # partial aggregates; a fused member writes no field
         step = max(1, ROWWISE_MAX_ELEMS // max(width(vals), 1))
-        if step >= n:
+        if step >= n or meta.fused_on(seg_idx):
             return finalize(reduce(vals, in_fields, in_idx, pred_masks, pred_codes, seg_idx))
         field = None
         for lo in range(0, n, step):
@@ -447,7 +555,8 @@ def _sparse_plan_parts(
         return finalize(field)
 
     meta = _SparseMeta(total=total, use_kernel=use_kernel, code_order=code_order,
-                       plain_on_cpu=trailing)
+                       plain_on_cpu=trailing, recipe=recipe if fuse else None,
+                       lane_shape=carried_dims)
     return fn, slab, finalize, meta
 
 
@@ -472,7 +581,7 @@ def _build_sparse_plan(ring, rel_attrs, doms, in_attrs_list, pred_attrs, out_att
     fn, _, _, meta = _sparse_plan_parts(
         ring, rel_attrs, doms, in_attrs_list, pred_attrs, out_attrs, n, code_order
     )
-    return _Plan(fn=fn, uses_kernel=meta.use_kernel)
+    return _Plan(fn=fn, uses_kernel=meta.use_kernel, fused=meta.recipe is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -519,7 +628,7 @@ def _build_sharded_sparse_plan(ring, rel_attrs, doms, in_attrs_list, pred_attrs,
     run = dist.shard_map(fn_local, mesh, in_specs=_sparse_shard_specs(axis))
     return _Plan(
         fn=lambda *args: dist.allreduce_field(run(*args), collective),
-        uses_kernel=meta.use_kernel, sharded=True,
+        uses_kernel=meta.use_kernel, fused=meta.recipe is not None, sharded=True,
         allreduce_bytes=_out_factor_bytes(ring, doms, out_attrs),
     )
 
@@ -609,7 +718,7 @@ def absorb_batch_key(ring: sr.Semiring, item: AbsorbItem) -> tuple:
 # ---------------------------------------------------------------------------
 
 def _level_plan_parts(ring: sr.Semiring, group_statics: tuple, code_order: bool = True) -> tuple:
-    """The level body as ``(lfn, group_kernel, fused_messages)``.
+    """The level body as ``(lfn, group_kernel, group_fused, fused_messages)``.
 
     ``group_statics[g]`` is ``(rel_attrs, doms, in_canon, pred_attrs,
     out_canon, n, member_dims)``: canonical placeholders, with each member's
@@ -619,8 +728,10 @@ def _level_plan_parts(ring: sr.Semiring, group_statics: tuple, code_order: bool 
     ``code_order`` allows); every kernel-route member of every group then
     contributes a ``(seg_idx, slab, num_segments)`` per leaf to ONE
     ``level_aggregate`` launch — or to several, in member order, when the
-    pending slabs would pass ``ROWWISE_MAX_ELEMS``.  Other members
-    ⊕-reduce with plain torch.
+    pending slabs would pass ``ROWWISE_MAX_ELEMS``.  A fused member (on a
+    CUDA device, ``_SparseMeta.recipe``) runs no rowwise stage and holds no
+    slab: it joins the next launch with its recipe and adds nothing to that
+    cut.  Other members ⊕-reduce with plain torch.
     """
     parts = []
     for (rel_attrs, doms, in_canon, pred_attrs, out_canon, n, member_dims) in group_statics:
@@ -631,6 +742,7 @@ def _level_plan_parts(ring: sr.Semiring, group_statics: tuple, code_order: bool 
         ]
         parts.append((members, members[0][3].use_kernel, n))
     group_kernel = tuple(use for _, use, _ in parts)
+    group_fused = tuple(members[0][3].recipe is not None for members, _, _ in parts)
     fused_messages = sum(len(members) for members, use, _ in parts if use)
     op = ring.kernel_segment_op
 
@@ -646,7 +758,9 @@ def _level_plan_parts(ring: sr.Semiring, group_statics: tuple, code_order: bool 
                 aggs = iter(seg_ops.level_aggregate(items, op=op))
             for g, b, rv, _, values, _, meta in pending:
                 finalize = parts[g][0][b][2]
-                results[g][b] = finalize(_unstack([next(aggs) for _ in values], rv, meta.total))
+                outs = [next(aggs) for _ in values]
+                results[g][b] = finalize(meta.fused_field(outs[0]) if rv is None
+                                         else _unstack(outs, rv, meta.total))
             pending.clear()
 
         for g, ((members, _, n), args) in enumerate(zip(parts, groups_args)):
@@ -655,6 +769,11 @@ def _level_plan_parts(ring: sr.Semiring, group_statics: tuple, code_order: bool 
                 if not meta.kernel_on(seg_idx):
                     results[g][b] = fn(vals_list[b], in_fields_list[b], in_idx,
                                        pred_masks_list[b], pred_codes, seg_idx)
+                    continue
+                if meta.fused_on(seg_idx):
+                    rc, in_order = meta.recipe(vals_list[b], in_fields_list[b], in_idx,
+                                               pred_masks_list[b], pred_codes, seg_idx)
+                    pending.append((g, b, None, seg_idx, [rc], in_order, meta))
                     continue
                 rv, values, in_order = slab(vals_list[b], in_fields_list[b], in_idx,
                                             pred_masks_list[b], pred_codes, seg_idx)
@@ -672,13 +791,13 @@ def _level_plan_parts(ring: sr.Semiring, group_statics: tuple, code_order: bool 
             launch()
         return tuple(tuple(r) for r in results)
 
-    return lfn, group_kernel, fused_messages
+    return lfn, group_kernel, group_fused, fused_messages
 
 
 def _build_level_plan(ring: sr.Semiring, group_statics: tuple) -> _Plan:
-    lfn, group_kernel, fused_messages = _level_plan_parts(ring, group_statics)
+    lfn, group_kernel, group_fused, fused_messages = _level_plan_parts(ring, group_statics)
     return _Plan(fn=lfn, uses_kernel=any(group_kernel), group_kernel=group_kernel,
-                 fused_messages=fused_messages)
+                 group_fused=group_fused, fused_messages=fused_messages)
 
 
 def _build_sharded_level_plan(ring: sr.Semiring, group_statics: tuple,
@@ -700,8 +819,8 @@ def _build_sharded_level_plan(ring: sr.Semiring, group_statics: tuple,
             raise ValueError(f"row bucket {n} not divisible by mesh {nshards}")
         local_statics.append((rel_attrs, doms, in_canon, pred_attrs, out_canon,
                               n // nshards, member_dims))
-    lfn, group_kernel, fused_messages = _level_plan_parts(ring, tuple(local_statics),
-                                                          code_order=False)
+    lfn, group_kernel, group_fused, fused_messages = _level_plan_parts(
+        ring, tuple(local_statics), code_order=False)
     collective = dist.ring_collective(ring)
     per_group = _sparse_shard_specs(axis)
     run = dist.shard_map(lfn, mesh, in_specs=(tuple(per_group for _ in group_statics),))
@@ -712,7 +831,7 @@ def _build_sharded_level_plan(ring: sr.Semiring, group_statics: tuple,
     )
     return _Plan(
         fn=lambda groups_args: dist.allreduce_field(run(groups_args), collective),
-        uses_kernel=any(group_kernel), group_kernel=group_kernel,
+        uses_kernel=any(group_kernel), group_kernel=group_kernel, group_fused=group_fused,
         fused_messages=fused_messages, sharded=True, allreduce_bytes=bytes_,
     )
 
@@ -880,13 +999,14 @@ class PlanCache:
         return v
 
     # -- plan execution ------------------------------------------------------
-    def _account(self, uses_kernel: bool, built: bool, stats) -> None:
+    def _account(self, uses_kernel: bool, built: bool, stats, fused: bool = False) -> None:
         if built:
             self.stats.plans_built += 1
         else:
             self.stats.plan_hits += 1
         if uses_kernel:
             self.stats.kernel_execs += 1
+            self.stats.fused_execs += int(fused and self.device.type == "cuda")
         else:
             self.stats.fallback_execs += 1
         if stats is not None:
@@ -976,7 +1096,7 @@ class PlanCache:
             if trace.on():
                 _record_member(rel, vals, incoming, preds, out_attrs, seg_idx)
             out = entry.fn(vals, tuple(in_fields), tuple(in_idx), pred_masks, pred_codes, seg_idx)
-            self._account(entry.uses_kernel, built, stats)
+            self._account(entry.uses_kernel, built, stats, entry.fused)
             if entry.sharded:
                 self._account_sharded(entry, (rel,))
             return out
@@ -1046,7 +1166,7 @@ class PlanCache:
             for it, f, stats in zip(spec.items, outs[pos], spec.stats or [None] * width):
                 # rename canonical placeholders back to the member's attrs
                 group_results.append(Factor(it.out_attrs, f.field, self.ring))
-                self._account(group_uses_kernel, built, stats)
+                self._account(group_uses_kernel, built, stats, entry.group_fused[pos])
                 if stats is not None and width > 1:
                     stats.level_batched_execs += 1
                     stats.level_batch_width = max(stats.level_batch_width, width)
@@ -1127,7 +1247,7 @@ class PlanCache:
         for it, f, stats in zip(spec.items, outs, spec.stats or [None] * width):
             # rename canonical placeholders back to the member's attrs
             results.append(Factor(it.out_attrs, f.field, self.ring))
-            self._account(entry.uses_kernel, built, stats)
+            self._account(entry.uses_kernel, built, stats, entry.group_fused[0])
             built = False  # one plan build per batched call, not per member
             if stats is None:
                 continue

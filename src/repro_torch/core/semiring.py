@@ -20,7 +20,10 @@ same meaning as in the JAX package: the last names the ⊕ of the
 segment-aggregate kernel ("sum"/"min"/"max"), or None for rings that take the
 plain torch path (BOOL, int64 COUNT).  The port also gives it to the
 covariance ring (the reference does not): its leaves go to the kernel side
-by side, flattened past their rows (``core/plans.py``).
+by side, flattened past their rows (``core/plans.py``).  ``kernel_mul``, the
+port's own, names the ring's ⊗ where the segment kernels can compute it from
+a rowwise recipe: "mul" (×, the arithmetic rings) or "add" (+, the tropical
+ones); None elsewhere.
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ class Semiring:
     # per leaf (valid whenever ⊕ is +)
     _segment: Callable[[Field, torch.Tensor, int], Field] | None = None
     kernel_segment_op: str | None = None
+    kernel_mul: str | None = None
 
     def mul(self, a: Field, b: Field) -> Field:
         return self._mul(a, b)
@@ -150,6 +154,7 @@ def _arith(name: str, dtype: torch.dtype) -> Semiring:
         is_arithmetic=True,
         has_add_inverse=True,
         kernel_segment_op="sum" if dtype == torch.float32 else None,
+        kernel_mul="mul",
     )
 
 
@@ -180,6 +185,7 @@ def _tropical(name: str, is_min: bool) -> Semiring:
         idempotent_add=True,
         _segment=lambda v, ids, n: _scatter(v, ids, n, reduce, zero),
         kernel_segment_op="min" if is_min else "max",
+        kernel_mul="add",
     )
 
 

@@ -265,9 +265,10 @@ def contract_args(m: torch.Tensor, r: torch.Tensor, dtypes: tuple) -> Geometry:
 # launch geometry of segment_aggregate and level_segment_aggregate
 # ---------------------------------------------------------------------------
 
-SEG_THREAD, SEG_WARP, SEG_SORT, SEG_SORT_ORDERED, SEG_MERGE = 0, 1, 2, 3, 4
+SEG_THREAD, SEG_WARP, SEG_SORT, SEG_SORT_ORDERED, SEG_FUSED, SEG_MERGE = 0, 1, 2, 3, 4, 8
 SEG_REGIMES = ("thread", "warp", "sort")
-SEG_GRIDS = 5               # segagg::kGrids: a grid per regime (sort in two forms), then merge
+SEG_GRIDS = 9               # segagg::kGrids: a grid per regime (sort in two forms) for slab
+                            # members, the same four for fused members (SEG_FUSED + r), then merge
 SEG_WARPS = THREADS // 32
 SEG_THREAD_G = 96           # G of one thread's copy (one column): 256 copies fill 96 KiB
 SEG_THREAD_COLS = 256       # columns of a thread-regime tile: one per thread, at most
@@ -277,6 +278,8 @@ SEG_TARGET_BLOCKS = 1024    # blocks a long message (per column tile) is cut int
 SEG_MERGE_CELLS = 1 << 20   # block partials of one warp-regime message, at most
 SEG_PIECE_ELEMS = 1 << 15   # sort: values per piece of a segment
 SEG_MAX_MEMBERS = 40        # segagg::kMaxMembers
+SEG_MAX_MESSAGES = 3        # segagg::kMaxMsgs: gathered messages of a recipe
+SEG_MAX_PREDICATES = 3      # segagg::kMaxPreds: σ predicates of a recipe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -352,10 +355,10 @@ class SegMember(ctypes.Structure):
 
 class SegTable(ctypes.Structure):
     """``struct segagg::Table``: the kernel's by-value parameter.  Members
-    are grouped by regime; per regime (thread, warp, sort through the row
-    order, sort in code order, then the merge grid over all members), the
-    index of its first member, its member count, grid and dynamic shared
-    memory."""
+    are grouped by grid; per grid (thread, warp, sort through the row
+    order, sort in code order, for slab members and then for fused ones,
+    then the merge grid over all members), the index of its first member,
+    its member count, grid and dynamic shared memory."""
 
     _fields_ = [("count", ctypes.c_int), ("pad", ctypes.c_int),
                 ("first", ctypes.c_int * SEG_GRIDS), ("members", ctypes.c_int * SEG_GRIDS),
@@ -363,42 +366,74 @@ class SegTable(ctypes.Structure):
                 ("m", SegMember * SEG_MAX_MEMBERS)]
 
 
+class SegRecipe(ctypes.Structure):
+    """``struct segagg::Recipe``, field for field: a fused member's lift,
+    its gathered messages (index, table, lane columns, table width) and its
+    σ predicates (codes, domain mask), ``add`` for a ⊗ of +."""
+
+    _fields_ = [("lift", _P), ("idx", _P * SEG_MAX_MESSAGES), ("tab", _P * SEG_MAX_MESSAGES),
+                ("lane_col", _P * SEG_MAX_MESSAGES), ("codes", _P * SEG_MAX_PREDICATES),
+                ("mask", _P * SEG_MAX_PREDICATES), ("cols", ctypes.c_int * SEG_MAX_MESSAGES),
+                ("msgs", ctypes.c_int), ("preds", ctypes.c_int), ("add", ctypes.c_int),
+                ("pad", ctypes.c_int)]
+
+
+class SegRecipes(ctypes.Structure):
+    """``struct segagg::Recipes``: the fused grids' second by-value
+    parameter, the recipes of a launch's fused members in table order."""
+
+    _fields_ = [("r", SegRecipe * SEG_MAX_MEMBERS)]
+
+
 @dataclasses.dataclass(frozen=True)
 class SegLaunch:
-    """One packed launch: the table, its blocks over all grids, the most
-    dynamic shared memory of one of them and its float32 workspace (0 for
-    none; ``tickets`` is :meth:`Kernel.scratch`'s, and 0)."""
+    """One packed launch: the table, its fused members' recipes (None when
+    it has none), its blocks over all grids, the most dynamic shared memory
+    of one of them and its float32 workspace (0 for none; ``tickets`` is
+    :meth:`Kernel.scratch`'s, and 0)."""
 
     table: SegTable
+    recipes: SegRecipes | None
     grid: int
     smem: int
     ws: int
     tickets: int = 0
 
 
-def pack_members(members) -> list[SegLaunch]:
+def pack_members(members, recipes=None) -> list[SegLaunch]:
     """Lay messages out in member tables, at most ``SEG_MAX_MEMBERS`` per
     launch, in order.  Each member is ``(geom, index_ptr, values_ptr,
     out_ptr, items_ptr, n, g, v, n_items, n_splits, ordered)`` with the
     geometry of :func:`segment_geometry` (or :func:`sort_launch`);
     ``ordered`` (sort only, with no index) marks values that arrive in code
-    order: that member runs in the grid ``SEG_SORT_ORDERED``.  In a table
-    the members are grouped by grid (stably: each grid runs once); a member
-    gets its grid's next blocks, the next stretch of the workspace and the
-    merge grid's next warps, and nothing else of it depends on the others."""
-    def grid_of(member) -> int:
-        return SEG_SORT_ORDERED if member[-1] else member[0].regime
+    order: that member runs in the grid ``SEG_SORT_ORDERED``.  ``recipes``
+    (one per member, None for a slab member) gives a fused member's
+    :class:`SegRecipe`: it passes no values and runs in its regime's fused
+    grid, ``SEG_FUSED`` + the grid it would take.  In a table the members
+    are grouped by grid (stably: each grid runs once); a member gets its
+    grid's next blocks, the next stretch of the workspace and the merge
+    grid's next warps, and nothing else of it depends on the others."""
+    recipes = [None] * len(members) if recipes is None else list(recipes)
+
+    def grid_of(j) -> int:
+        member = members[j]
+        grid = SEG_SORT_ORDERED if member[-1] else member[0].regime
+        return grid + SEG_FUSED if recipes[j] is not None else grid
 
     launches = []
     for lo in range(0, len(members), SEG_MAX_MEMBERS):
-        group = sorted(members[lo: lo + SEG_MAX_MEMBERS], key=grid_of)
+        group = sorted(range(lo, min(len(members), lo + SEG_MAX_MEMBERS)), key=grid_of)
         table = SegTable(count=len(group))
+        fused = SegRecipes() if any(recipes[j] is not None for j in group) else None
         blocks, smem = [0] * SEG_GRIDS, [0] * SEG_GRIDS
         count = [0] * (SEG_GRIDS - 1) + [len(group)]
-        ws = merge = 0
-        for j, member in enumerate(group):
-            geom, index, values, out, items, n, g, v, n_items, n_splits, _ = member
-            r = grid_of(member)
+        ws = merge = nfused = 0
+        for j, i in enumerate(group):
+            geom, index, values, out, items, n, g, v, n_items, n_splits, _ = members[i]
+            r = grid_of(i)
+            if recipes[i] is not None:
+                fused.r[nfused] = recipes[i]
+                nfused += 1
             table.m[j] = SegMember(
                 index=index, values=values, out=out, items=items, n=n, chunk=geom.chunk, ws=ws,
                 g=g, v=v, regime=r, vt=geom.vt, tiles=geom.tiles, blocks=geom.blocks,
@@ -413,5 +448,5 @@ def pack_members(members) -> list[SegLaunch]:
             raise ValueError(f"a segment launch of {max(blocks)} blocks exceeds the grid")
         table.first[:] = [sum(count[:r]) for r in range(SEG_GRIDS - 1)] + [0]
         table.members[:], table.grid[:], table.smem[:] = count, blocks, smem
-        launches.append(SegLaunch(table, sum(blocks), max(smem), ws))
+        launches.append(SegLaunch(table, fused, sum(blocks), max(smem), ws))
     return launches

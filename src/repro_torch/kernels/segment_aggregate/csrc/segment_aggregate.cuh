@@ -67,6 +67,29 @@
 //   as two grids (kSort, kSortOrdered), each with the registers its loads
 //   need.
 //
+// Two value sources.  A slab member reads its values from (N, V) `values`.
+// A fused member (values null; it runs in grid kFused + its regime's grid)
+// computes each value from its rowwise recipe (struct Recipe, the j-th of
+// the launch's fused members in a second by-value parameter) as the plan
+// layer's rowwise stage would have written it (core/plans.py): row r's
+// value at lane c is
+//
+//   (((lift[r] ⊗ T_1[i_1[r], col_1[c]]) ⊗ T_2[i_2[r], col_2[c]]) ⊗ …)
+//
+// the messages' ⊗ (× or +) in step order, a broadcast message reading its
+// table's row 0, then 0̄ (the ⊕-identity) where a σ predicate fails
+// (mask_p[codes_p[r]] == 0).  Each ⊗ is __fmul_rn / __fadd_rn, so no
+// product is contracted with the ⊕ into an FMA: the value has the bits of
+// the slab's element.  It enters the regime's ⊕ loop where the slab's
+// element would, in the same order (the loops' unroll moves only when loads
+// are issued), so a fused member's output has the bits of the same member
+// reduced from the slab that the rowwise stage writes.  A fused sort member
+// in code order has its recipe's row columns (lift, indices, σ codes) in
+// code order, as the slab would be.  In the thread regime with several
+// columns every thread of a block reads the same rows, so the block stages
+// them (a row per thread: code, lift, σ verdict and table rows, in shared
+// memory) and its threads read their table entries at the staged rows.
+//
 // A thread or warp member of more than one block writes each block's
 // partials to the workspace, and so does a sort member for each piece of a
 // segment of more than one piece.  The merge grid then combines them, one
@@ -86,7 +109,14 @@
 // (at V = 1 a 4-byte value can cost a 32-byte sector); in code order it
 // reads the values in place and neither codes nor permutation.  The warp
 // regime's shared-memory traffic (a tag and a cell per element, at random
-// banks) is what it spends beyond the bytes.
+// banks) is what it spends beyond the bytes.  A fused member reads no
+// values: N·4·(2 + K + P) bytes of codes, lift, K gather indices and P σ
+// codes (a broadcast message has none), its tables and masks (small: they
+// stay in L1 and L2), and writes G·V·4; it does N·V·(K + 1) FP32
+// operations (K ⊗ and one ⊕ an element), so past a few lanes it is bound by
+// those and by the loads of each element's table entries, not by the bytes
+// (2^23 rows, V = 624, K = 2: 15.7 G operations, 0.47 ms at 33.5 T/s,
+// against 0.06 ms of bytes at 3.35 TB/s).
 
 #pragma once
 
@@ -95,8 +125,9 @@
 namespace segagg {
 
 enum Op { kSum = 0, kMin = 1, kMax = 2 };
-enum Regime { kThread = 0, kWarp = 1, kSort = 2, kSortOrdered = 3, kMerge = 4 };
-constexpr int kGrids = 5;          // the regimes' grids, then the merge grid
+// grids 0-3 take slab members by regime, grids kFused + 0-3 fused members
+enum Regime { kThread = 0, kWarp = 1, kSort = 2, kSortOrdered = 3, kFused = 4, kMerge = 8 };
+constexpr int kGrids = 9;          // the regimes' grids, then the merge grid
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -107,6 +138,9 @@ constexpr int kQuads = 2;           // thread regime, one column: 4-row quads in
 constexpr int kUnroll = 4;          // loads in flight per thread before they are ⊕-ed in order
 constexpr int kWarpUnroll = 8;      // ... in the warp regime (the next ones load meanwhile)
 constexpr int kSortUnroll = 8;      // ... in the sort regime
+constexpr int kFusedUnroll = 4;     // ... in the sort regime, for fused members
+constexpr int kMaxMsgs = 3;         // recipe: gathered messages (a star's three dimensions)
+constexpr int kMaxPreds = 3;        // recipe: σ predicates
 constexpr int kItemFields = 5;      // sort work item: segment, begin, end, slot, split
 constexpr int kSplitFields = 3;     // sort split segment: first slot, pieces, segment
 constexpr unsigned kFull = 0xffffffffu;
@@ -123,7 +157,7 @@ struct Member {
   long long chunk;       // rows per block, about (thread, warp) or per piece (sort)
   long long ws;          // offset of the member's partials in the workspace, in floats
   int g, v;
-  int regime;
+  int regime;            // its grid: the regime, plus kFused for a fused member
   int vt, tiles;         // column tile (thread; warp and sort: v and 1)
   int blocks;            // blocks per tile (thread, warp) or blocks of 8 items (sort)
   int first_block;       // the member's first block in its regime's grid
@@ -132,9 +166,10 @@ struct Member {
   int n_splits;          // sort: segments of more than one piece
 };
 
-// Members are grouped by regime (the sort regime by form); per regime (and
-// for the merge grid, whose members are all of them) the index of its first
-// member, its member count, grid and dynamic shared memory.
+// Members are grouped by grid (the regime, the sort regime by form, slab
+// members first); per grid (and for the merge grid, whose members are all of
+// them) the index of its first member, its member count, grid and dynamic
+// shared memory.
 struct Table {
   int count;
   int pad;
@@ -144,6 +179,30 @@ struct Table {
   int smem[kGrids];
   Member m[kMaxMembers];
 };
+
+// field order of class SegRecipe in repro_torch/kernels/launch.py
+struct Recipe {
+  const float* lift;                    // (n,) the lift leaf
+  const int* idx[kMaxMsgs];             // (n,) row of message k's table, or null: row 0
+  const float* tab[kMaxMsgs];           // message k, (rows, cols[k]) row-major
+  const int* lane_col[kMaxMsgs];        // (v,) the column of message k that lane c reads
+  const int* codes[kMaxPreds];          // (n,) σ predicate p's codes
+  const unsigned char* mask[kMaxPreds]; // its domain mask, a byte an entry
+  int cols[kMaxMsgs];
+  int msgs, preds;
+  int add;                              // ⊗: 0 ×, 1 +
+  int pad;
+};
+
+// The recipes of a launch's fused members, in member order: member j of the
+// table (j ≥ first[kFused + kThread]) has recipe j - first[kFused + kThread].
+// With the table a fused grid's parameters pass 4 KiB (CUDA 12.1 and later
+// take up to 32,764 bytes).
+struct Recipes {
+  Recipe r[kMaxMembers];
+};
+
+__host__ __device__ constexpr int base_regime(int grid) { return grid % kFused; }
 
 template <int OP>
 __device__ __forceinline__ float identity() {
@@ -165,6 +224,83 @@ template <int OP>
 __device__ __forceinline__ float xor_tree(float x, int lo) {
   for (int off = lo; off < 32; off <<= 1) x = combine<OP>(x, __shfl_xor_sync(kFull, x, off));
   return x;
+}
+
+// ---------------------------------------------------------------------------
+// the value source: a slab member's values, or a fused member's recipe
+// ---------------------------------------------------------------------------
+
+// A lane's part of a recipe value: the column of each message's table it reads.
+struct Lane {
+  int col[kMaxMsgs];
+};
+
+__device__ __forceinline__ Lane recipe_lane(const Recipe& rc, int c) {
+  Lane l;
+#pragma unroll
+  for (int k = 0; k < kMaxMsgs; ++k) l.col[k] = k < rc.msgs ? __ldg(rc.lane_col[k] + c) : 0;
+  return l;
+}
+
+// A row's part: its lift, the offset of its row in each message's table
+// (index · cols; 0 for a broadcast message and past msgs) and the σ verdict.
+// Tables hold fewer than 2^31 elements (ops.py checks).
+struct Row {
+  float lift;
+  bool pass;
+  int at[kMaxMsgs];
+};
+
+__device__ __forceinline__ Row recipe_row(const Recipe& rc, long long row) {
+  Row w;
+  w.lift = __ldg(rc.lift + row);
+#pragma unroll
+  for (int k = 0; k < kMaxMsgs; ++k) {
+    w.at[k] = k < rc.msgs && rc.idx[k] != nullptr ? __ldg(rc.idx[k] + row) * rc.cols[k] : 0;
+  }
+  bool pass = true;
+#pragma unroll
+  for (int p = 0; p < kMaxPreds; ++p) {
+    if (p < rc.preds) pass = pass && __ldg(rc.mask[p] + __ldg(rc.codes[p] + row)) != 0;
+  }
+  w.pass = pass;
+  return w;
+}
+
+// The value of row `w` at lane `l`: the messages' ⊗ in step order, rounded
+// to nearest one by one, then 0̄ where σ fails.
+template <int OP>
+__device__ __forceinline__ float recipe_value(const Recipe& rc, const Row& w, const Lane& l) {
+  float x = w.lift;
+#pragma unroll
+  for (int k = 0; k < kMaxMsgs; ++k) {
+    if (k < rc.msgs) {
+      const float y = __ldg(rc.tab[k] + w.at[k] + l.col[k]);
+      x = rc.add ? __fadd_rn(x, y) : __fmul_rn(x, y);
+    }
+  }
+  return w.pass ? x : identity<OP>();
+}
+
+// Row `row`'s value at column `c` (lane `l` of the recipe) of the member's
+// source.
+template <int OP, bool FUSED>
+__device__ __forceinline__ float member_value(const Member& m, const Recipe* rc, const Lane& l,
+                                              long long row, int c) {
+  if constexpr (FUSED) {
+    return recipe_value<OP>(*rc, recipe_row(*rc, row), l);
+  } else {
+    return __ldg(m.values + row * m.v + c);
+  }
+}
+
+template <bool FUSED>
+__device__ __forceinline__ Lane member_lane(const Recipe* rc, int c) {
+  if constexpr (FUSED) {
+    return recipe_lane(*rc, c);
+  } else {
+    return Lane{};
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -238,10 +374,106 @@ __device__ __forceinline__ void thread_columns(const Member& m, int b, float* ac
   }
 }
 
+// thread, several columns, fused: every thread of a block reads the same
+// rows (its groups b + k·B, in order), so the block stages them p groups at
+// a time, a row per thread: its code (plus kFailed where σ fails), its lift
+// and each message's table row.  Then each thread adds its column of the
+// staged rows in the order above, reading its table entries at the staged
+// rows.
+constexpr int kFailed = 128;   // > the thread regime's G
+
+// Thread t's column of the p staged groups (a row each: slot jj · rows +
+// rsub), MSGS messages and ⊗ = + (ADD) or × fixed, so nothing is tested per
+// element but the row's code.
+template <int OP, int MSGS, bool ADD>
+__device__ __forceinline__ void add_staged(const int4* stage, const int* stage_row2,
+                                           const float* const (&at)[kMaxMsgs], float* acc,
+                                           int p, int rows, int rsub) {
+  const int t = threadIdx.x;
+#pragma unroll 4
+  for (int jj = 0; jj < p; ++jj) {
+    const int slot = jj * rows + rsub;
+    const int4 e = stage[slot];
+    if (e.x >= 0) {
+      float x = __int_as_float(e.y);
+      const int row[kMaxMsgs] = {e.z, e.w, MSGS > 2 ? stage_row2[slot] : 0};
+#pragma unroll
+      for (int k = 0; k < MSGS; ++k) {
+        const float y = __ldg(at[k] + row[k]);
+        x = ADD ? __fadd_rn(x, y) : __fmul_rn(x, y);
+      }
+      int code = e.x;
+      if (code >= kFailed) {
+        code -= kFailed;
+        x = identity<OP>();
+      }
+      float* a = acc + code * kThreads + t;
+      *a = combine<OP>(*a, x);
+    }
+  }
+}
+
+template <int OP>
+__device__ __forceinline__ void thread_columns_fused(const Member& m, const Recipe& rc, int b,
+                                                     float* acc, int vh, int c0) {
+  __shared__ int4 stage[kThreads];             // code, lift, table rows 0 and 1
+  __shared__ int stage_row2[kThreads];         // table row 2
+  const int t = threadIdx.x, g = m.g;
+  int p = 1;
+  while (p < vh) p <<= 1;
+  const int rows = kThreads / p;
+  const int col = t % p, rsub = t / p;
+  const long long groups = (m.n + rows - 1) / rows;
+  const long long stride = m.blocks;
+  const int msgs = rc.msgs;
+  const bool add = rc.add != 0;
+  const float* at[kMaxMsgs];   // this thread's column of each table's row 0
+#pragma unroll
+  for (int k = 0; k < kMaxMsgs; ++k) {
+    at[k] = k < msgs && col < vh ? rc.tab[k] + __ldg(rc.lane_col[k] + c0 + col) : nullptr;
+  }
+  for (long long j0 = 0; b + j0 * stride < groups; j0 += p) {
+    {  // slot t: row t % rows of group j0 + t / rows
+      const long long grp = b + (j0 + t / rows) * stride;
+      const long long row = grp * rows + t % rows;
+      int code = -1;
+      int4 e = make_int4(-1, 0, 0, 0);
+      int row2 = 0;
+      if (grp < groups && row < m.n) code = __ldg(m.index + row);
+      if (code >= 0 && code < g) {
+        const Row w = recipe_row(rc, row);
+        e = make_int4(w.pass ? code : code + kFailed, __float_as_int(w.lift), w.at[0], w.at[1]);
+        row2 = w.at[2];
+      }
+      stage[t] = e;
+      stage_row2[t] = row2;
+    }
+    __syncthreads();
+    if (col < vh) {  // several lanes need a message (recipe_ok), so msgs ≥ 1
+      switch (msgs * 2 + add) {
+        case 2: add_staged<OP, 1, false>(stage, stage_row2, at, acc, p, rows, rsub); break;
+        case 3: add_staged<OP, 1, true>(stage, stage_row2, at, acc, p, rows, rsub); break;
+        case 4: add_staged<OP, 2, false>(stage, stage_row2, at, acc, p, rows, rsub); break;
+        case 5: add_staged<OP, 2, true>(stage, stage_row2, at, acc, p, rows, rsub); break;
+        case 6: add_staged<OP, 3, false>(stage, stage_row2, at, acc, p, rows, rsub); break;
+        default: add_staged<OP, 3, true>(stage, stage_row2, at, acc, p, rows, rsub); break;
+      }
+    }
+    __syncthreads();
+  }
+  for (int cell = t; cell < g * p; cell += kThreads) {
+    float* a = acc + (cell / p) * kThreads;
+    const int c = cell % p;
+    float s = a[c];
+    for (int k = 1; k < rows; ++k) s = combine<OP>(s, a[c + k * p]);
+    a[c] = s;
+  }
+}
+
 // thread: a private copy of the tile's G cells of its column per thread, in
 // shared memory as [code][thread] (no bank conflicts).
-template <int OP>
-__device__ void thread_block(const Member& m, int bt, float* ws) {
+template <int OP, bool FUSED>
+__device__ void thread_block(const Member& m, const Recipe* rc, int bt, float* ws) {
   extern __shared__ float acc[];
   const int tile = bt / m.blocks, b = bt % m.blocks;
   const int g = m.g, v = m.v, vt = m.vt;
@@ -254,8 +486,10 @@ __device__ void thread_block(const Member& m, int bt, float* ws) {
     // in order, a quad's rows in order (one 16-byte load each of codes and
     // values where the addresses allow: the order is the same either way)
     const long long stride = static_cast<long long>(m.blocks) * kThreads;
-    const bool vec = v == 1 && ((reinterpret_cast<unsigned long long>(m.index) |
-                                 reinterpret_cast<unsigned long long>(m.values)) & 15) == 0;
+    const bool vec = !FUSED && v == 1 &&
+                     ((reinterpret_cast<unsigned long long>(m.index) |
+                       reinterpret_cast<unsigned long long>(m.values)) & 15) == 0;
+    const Lane lc = member_lane<FUSED>(rc, c0);
     const long long quads = (m.n + 3) / 4;
     for (long long q = static_cast<long long>(b) * kThreads + t; q < quads; q += stride * kQuads) {
       int code[kQuads][4];
@@ -273,7 +507,7 @@ __device__ void thread_block(const Member& m, int bt, float* ws) {
           for (int i = 0; i < 4; ++i) {
             const bool in = row + i < m.n;
             code[u][i] = in ? __ldg(m.index + row + i) : -1;
-            x[u][i] = in ? __ldg(m.values + (row + i) * v + c0) : 0.0f;
+            x[u][i] = in ? member_value<OP, FUSED>(m, rc, lc, row + i, c0) : 0.0f;
           }
         }
       }
@@ -301,7 +535,11 @@ __device__ void thread_block(const Member& m, int bt, float* ws) {
       if (lane == 0) acc[k * kThreads] = s;
     }
   } else {
-    thread_columns<OP>(m, b, acc, vh, c0);
+    if constexpr (FUSED) {
+      thread_columns_fused<OP>(m, *rc, b, acc, vh, c0);
+    } else {
+      thread_columns<OP>(m, b, acc, vh, c0);
+    }
   }
   __syncthreads();
   // the block's partial of cell (code, c) is at acc[code · 256 + c]; the
@@ -322,8 +560,8 @@ __device__ void thread_block(const Member& m, int bt, float* ws) {
 // warp: a private copy of the G·V cells per warp, and a lane mask per code
 // (`tag`).  A batch's elements of one cell are added in lane order by
 // rounds: round r adds each lane whose rank among its peers is r.
-template <int OP>
-__device__ void warp_block(const Member& m, int b, float* ws) {
+template <int OP, bool FUSED>
+__device__ void warp_block(const Member& m, const Recipe* rc, int b, float* ws) {
   extern __shared__ float copies[];
   const int g = m.g, v = m.v;
   const int cells = g * v;
@@ -340,6 +578,7 @@ __device__ void warp_block(const Member& m, int b, float* ws) {
   const int rsub = lane / p, col = lane % p;
   const unsigned lower = (1u << lane) - 1u;    // the lanes before this one
   const long long groups = (m.n + rows - 1) / rows;
+  const Lane lc = member_lane<FUSED>(rc, col < v ? col : 0);
   const long long tw = static_cast<long long>(m.blocks) * kWarps;
   const long long step = tw * kWarpUnroll;
   // code (-1: no element: past the rows, past V or outside [0, G)) and value
@@ -354,7 +593,7 @@ __device__ void warp_block(const Member& m, int b, float* ws) {
       y[u] = identity<OP>();
       if (row < m.n && col < v) {
         const int k = __ldg(m.index + row);
-        y[u] = __ldg(m.values + row * v + col);
+        y[u] = member_value<OP, FUSED>(m, rc, lc, row, col);
         if (k >= 0 && k < g) c[u] = k;
       }
     }
@@ -422,7 +661,7 @@ __device__ __forceinline__ float merge_parts(const float* p, long long stride, i
 template <int OP>
 __device__ void merge_warp(const Member& m, long long w, const float* ws) {
   const int lane = threadIdx.x & 31;
-  if (m.regime == kSort || m.regime == kSortOrdered) {
+  if (base_regime(m.regime) >= kSort) {
     const int split = static_cast<int>(w / m.v), c = static_cast<int>(w % m.v);
     const int* sp = m.items + static_cast<long long>(m.n_items) * kItemFields +
                     static_cast<long long>(split) * kSplitFields;
@@ -447,40 +686,51 @@ __device__ void merge_warp(const Member& m, long long w, const float* ws) {
 // row i when the values arrive in code order: ORDERED) of W columns per lane
 // from column cb + W · (lane % vp) on (W = 4 when V is a multiple of 4, read
 // as one 16-byte load where the address allows: the order is the same either
-// way); lanes of one column class end with the same bits.
-template <int OP, int W, bool ORDERED>
-__device__ __forceinline__ void piece_sum(const Member& m, int begin, int end, int cb, int vp,
-                                          int lane, float (&acc)[W]) {
+// way); lanes of one column class end with the same bits.  A fused member
+// computes the W values from one read of the row's recipe columns.
+template <int OP, int W, bool ORDERED, bool FUSED>
+__device__ __forceinline__ void piece_sum(const Member& m, const Recipe* rc, int begin, int end,
+                                          int cb, int vp, int lane, float (&acc)[W]) {
+  constexpr int U = FUSED ? kFusedUnroll : kSortUnroll;
   const int c = cb + W * (lane % vp);
   const int step = 32 / vp;
 #pragma unroll
   for (int w = 0; w < W; ++w) acc[w] = identity<OP>();
   if (c < m.v) {
-    const bool vec = W == 4 && (reinterpret_cast<unsigned long long>(m.values) & 15) == 0;
-    for (int r = begin + lane / vp; r < end; r += step * kSortUnroll) {
-      float x[kSortUnroll][W];
+    const bool vec = !FUSED && W == 4 && (reinterpret_cast<unsigned long long>(m.values) & 15) == 0;
+    Lane lc[W];
 #pragma unroll
-      for (int u = 0; u < kSortUnroll; ++u) {
+    for (int w = 0; w < W; ++w) lc[w] = member_lane<FUSED>(rc, c + w);
+    for (int r = begin + lane / vp; r < end; r += step * U) {
+      float x[U][W];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
         const int ru = r + step * u;
 #pragma unroll
         for (int w = 0; w < W; ++w) x[u][w] = identity<OP>();
         if (ru < end) {
           const long long row = ORDERED ? ru : __ldg(m.index + ru);
-          const float* src = m.values + row * m.v + c;
-          if (W == 4 && vec) {
-            const float4 q = __ldg(reinterpret_cast<const float4*>(src));
-            x[u][0] = q.x;
-            x[u][W > 1 ? 1 : 0] = q.y;
-            x[u][W > 2 ? 2 : 0] = q.z;
-            x[u][W > 3 ? 3 : 0] = q.w;
-          } else {
+          if constexpr (FUSED) {
+            const Row rw = recipe_row(*rc, row);
 #pragma unroll
-            for (int w = 0; w < W; ++w) x[u][w] = __ldg(src + w);
+            for (int w = 0; w < W; ++w) x[u][w] = recipe_value<OP>(*rc, rw, lc[w]);
+          } else {
+            const float* src = m.values + row * m.v + c;
+            if (W == 4 && vec) {
+              const float4 q = __ldg(reinterpret_cast<const float4*>(src));
+              x[u][0] = q.x;
+              x[u][W > 1 ? 1 : 0] = q.y;
+              x[u][W > 2 ? 2 : 0] = q.z;
+              x[u][W > 3 ? 3 : 0] = q.w;
+            } else {
+#pragma unroll
+              for (int w = 0; w < W; ++w) x[u][w] = __ldg(src + w);
+            }
           }
         }
       }
 #pragma unroll
-      for (int u = 0; u < kSortUnroll; ++u) {
+      for (int u = 0; u < U; ++u) {
 #pragma unroll
         for (int w = 0; w < W; ++w) acc[w] = combine<OP>(acc[w], x[u][w]);
       }
@@ -490,8 +740,8 @@ __device__ __forceinline__ void piece_sum(const Member& m, int begin, int end, i
   for (int w = 0; w < W; ++w) acc[w] = xor_tree<OP>(acc[w], vp);
 }
 
-template <int OP, int W, bool ORDERED>
-__device__ void sort_item(const Member& m, const int* item, float* ws) {
+template <int OP, int W, bool ORDERED, bool FUSED>
+__device__ void sort_item(const Member& m, const Recipe* rc, const int* item, float* ws) {
   const int lane = threadIdx.x & 31;
   const int seg = item[0], begin = item[1], end = item[2], slot = item[3];
   const int lanes = (m.v + W - 1) / W;   // lanes a row's columns need
@@ -502,7 +752,7 @@ __device__ void sort_item(const Member& m, const int* item, float* ws) {
                         : ws + m.ws + static_cast<long long>(slot) * m.v;
   for (int cb = 0; cb < m.v; cb += 32 * W) {
     float s[W];
-    piece_sum<OP, W, ORDERED>(m, begin, end, cb, vp, lane, s);
+    piece_sum<OP, W, ORDERED, FUSED>(m, rc, begin, end, cb, vp, lane, s);
     const int c = cb + W * (lane % vp);
     if (lane < vp && c < m.v) {
 #pragma unroll
@@ -511,15 +761,15 @@ __device__ void sort_item(const Member& m, const int* item, float* ws) {
   }
 }
 
-template <int OP, bool ORDERED>
-__device__ void sort_block(const Member& m, int b, float* ws) {
+template <int OP, bool ORDERED, bool FUSED>
+__device__ void sort_block(const Member& m, const Recipe* rc, int b, float* ws) {
   const int it = b * kWarps + (threadIdx.x >> 5);
   if (it >= m.n_items) return;
   const int* item = m.items + static_cast<long long>(it) * kItemFields;
   if (m.v % 4 == 0) {
-    sort_item<OP, 4, ORDERED>(m, item, ws);
+    sort_item<OP, 4, ORDERED, FUSED>(m, rc, item, ws);
   } else {
-    sort_item<OP, 1, ORDERED>(m, item, ws);
+    sort_item<OP, 1, ORDERED, FUSED>(m, rc, item, ws);
   }
 }
 
@@ -529,14 +779,14 @@ __device__ void sort_block(const Member& m, int b, float* ws) {
 
 // a member's warps in the merge grid
 __host__ __device__ inline long long merge_warps(const Member& m) {
-  if (m.regime == kSort || m.regime == kSortOrdered) {
+  if (base_regime(m.regime) >= kSort) {
     return static_cast<long long>(m.n_splits) * m.v;
   }
   return m.blocks > 1 ? static_cast<long long>(m.tiles) * m.g * m.vt : 0;
 }
 
 template <int OP, int R>
-__device__ __forceinline__ void aggregate_members(const Table& t, float* ws) {
+__device__ __forceinline__ void aggregate_members(const Table& t, const Recipes* rs, float* ws) {
   int j = t.first[R];
   const int last = j + t.members[R] - 1;
   if constexpr (R == kMerge) {  // the merge grid counts warps: a member's first is in `aux`
@@ -548,46 +798,83 @@ __device__ __forceinline__ void aggregate_members(const Table& t, float* ws) {
     while (j < last && static_cast<int>(blockIdx.x) >= t.m[j + 1].first_block) ++j;
     const Member& m = t.m[j];
     const int b = static_cast<int>(blockIdx.x) - m.first_block;
-    if constexpr (R == kThread) {
-      thread_block<OP>(m, b, ws);
-    } else if constexpr (R == kWarp) {
-      warp_block<OP>(m, b, ws);
+    constexpr bool kFusedGrid = R >= kFused;
+    const Recipe* rc = nullptr;
+    if constexpr (kFusedGrid) {  // the member's recipe, in shared memory for every thread
+      __shared__ Recipe recipe;
+      const int* src = reinterpret_cast<const int*>(&rs->r[j - t.first[kFused]]);
+      int* dst = reinterpret_cast<int*>(&recipe);
+      for (int i = threadIdx.x; i < static_cast<int>(sizeof(Recipe) / 4); i += kThreads) {
+        dst[i] = src[i];
+      }
+      __syncthreads();
+      rc = &recipe;
+    }
+    constexpr int kBase = base_regime(R);
+    if constexpr (kBase == kThread) {
+      thread_block<OP, kFusedGrid>(m, rc, b, ws);
+    } else if constexpr (kBase == kWarp) {
+      warp_block<OP, kFusedGrid>(m, rc, b, ws);
     } else {
-      sort_block<OP, R == kSortOrdered>(m, b, ws);
+      sort_block<OP, kBase == kSortOrdered, kFusedGrid>(m, rc, b, ws);
     }
   }
 }
 
-// Host side: one grid of `kernel`, if the table has work for it.
-template <typename Kernel>
-inline cudaError_t launch_regime(Kernel kernel, const Table& t, int r, float* ws,
-                                 cudaStream_t s) {
+// Host side: one grid of `kernel`, if the table has work for it; `args` are
+// the kernel's (the table, for a fused grid the recipes, the workspace).
+template <typename Kernel, typename... Args>
+inline cudaError_t launch_regime(Kernel kernel, const Table& t, int r, cudaStream_t s,
+                                 const Args&... args) {
   if (t.members[r] == 0 || t.grid[r] == 0) return cudaSuccess;
-  kernel<<<t.grid[r], kThreads, t.smem[r], s>>>(t, ws);
+  kernel<<<t.grid[r], kThreads, t.smem[r], s>>>(args...);
   return cudaGetLastError();
 }
 
+// Host side: a fused member's recipe is complete (its pointers are the
+// caller's: ops.py checks every tensor's shape, dtype and device).
+inline bool recipe_ok(const Recipe& rc, const Member& m) {
+  if (rc.lift == nullptr || rc.msgs < 0 || rc.msgs > kMaxMsgs || rc.preds < 0 ||
+      rc.preds > kMaxPreds || (rc.add != 0 && rc.add != 1)) {
+    return false;
+  }
+  if (rc.msgs == 0 && m.v != 1) return false;   // a lift alone is one lane
+  for (int k = 0; k < rc.msgs; ++k) {
+    if (rc.tab[k] == nullptr || rc.lane_col[k] == nullptr || rc.cols[k] < 1) return false;
+  }
+  for (int p = 0; p < rc.preds; ++p) {
+    if (rc.codes[p] == nullptr || rc.mask[p] == nullptr) return false;
+  }
+  return true;
+}
+
 // Host side: the checks a C entry point makes before it launches.
-inline bool table_ok(const Table& t, const void* ws) {
+inline bool table_ok(const Table& t, const Recipes* rs, const void* ws) {
   if (t.count < 1 || t.count > kMaxMembers) return false;
   int next = 0;
   long long merge = 0;
-  for (int r = kThread; r <= kSortOrdered; ++r) {
+  for (int r = kThread; r < kMerge; ++r) {
     if (t.first[r] != next || t.members[r] < 0) return false;
     next += t.members[r];
     if (t.members[r] == 0) continue;
+    const int base = base_regime(r);
+    const bool fused = r >= kFused;
     if (t.grid[r] < 1 || t.smem[r] < 0) return false;
-    if (t.smem[r] > (r >= kSort ? kSmemMax : kBigSmemMax)) return false;
+    if (t.smem[r] > (base >= kSort ? kSmemMax : kBigSmemMax)) return false;
+    if (fused && rs == nullptr) return false;
     int block = 0;
     for (int j = t.first[r]; j < next; ++j) {
       const Member& m = t.m[j];
       if (m.regime != r || m.n <= 0 || m.g <= 0 || m.v <= 0 || m.blocks <= 0) return false;
-      if ((m.index == nullptr) != (r == kSortOrdered)) return false;
-      if (r == kThread && m.g * kThreads * 4 > t.smem[r]) return false;
-      if (r == kWarp && (m.v > 32 || m.vt != m.v || m.g * (m.v + 1) * kWarps * 4 > t.smem[r])) {
+      if ((m.index == nullptr) != (base == kSortOrdered)) return false;
+      if ((m.values == nullptr) != fused) return false;
+      if (fused && !recipe_ok(rs->r[j - t.first[kFused]], m)) return false;
+      if (base == kThread && m.g * kThreads * 4 > t.smem[r]) return false;
+      if (base == kWarp &&
+          (m.v > 32 || m.vt != m.v || m.g * (m.v + 1) * kWarps * 4 > t.smem[r])) {
         return false;
       }
-      if (r >= kSort && (m.items == nullptr || m.n_items > m.blocks * kWarps)) return false;
+      if (base >= kSort && (m.items == nullptr || m.n_items > m.blocks * kWarps)) return false;
       if (m.aux != merge || m.first_block != block) return false;
       merge += merge_warps(m);
       block += m.blocks * m.tiles;

@@ -30,10 +30,22 @@ from repro_torch.kernels.launch import Kernel
 OP_CODES = {"sum": 0, "min": 1, "max": 2}
 
 _P = ctypes.c_void_p
-# (table, op, workspace); the stream comes last
-_ARGTYPES = [_P, ctypes.c_int, _P]
+# (table, recipes, op, workspace); the stream comes last
+_ARGTYPES = [_P, _P, ctypes.c_int, _P]
 KERNELS = {name: Kernel(name, _ARGTYPES)
            for name in ("segment_aggregate", "level_segment_aggregate")}
+
+
+def _seg_recipe(recipe) -> _launch.SegRecipe:
+    """The C struct of an ``ops.Recipe``: its tensors' addresses and sizes."""
+    r = _launch.SegRecipe(lift=recipe.lift.data_ptr(), msgs=len(recipe.messages),
+                          preds=len(recipe.preds), add=int(recipe.add))
+    for k, (index, table, lanes) in enumerate(recipe.messages):
+        r.idx[k] = None if index is None else index.data_ptr()
+        r.tab[k], r.lane_col[k], r.cols[k] = table.data_ptr(), lanes.data_ptr(), table.shape[1]
+    for p, (codes, mask) in enumerate(recipe.preds):
+        r.codes[p], r.mask[p] = codes.data_ptr(), mask.data_ptr()
+    return r
 
 
 def launch(name: str, members: list, op: str) -> int:
@@ -43,32 +55,38 @@ def launch(name: str, members: list, op: str) -> int:
 
     Each member is ``(codes, values, out, geom, order, ordered)``:
     contiguous CUDA tensors of one device, ``codes`` (N,) int32, ``values``
-    (N, V) float32, ``out`` (G, V) float32 holding the ⊕-identity, ``geom``
-    its ``launch.segment_geometry(N, G, V)``, ``order`` its row order
+    (N, V) float32 or an ``ops.Recipe`` of V lanes (a fused member: the
+    kernel computes its values), ``out`` (G, V) float32 holding the
+    ⊕-identity, ``geom`` its ``launch.segment_geometry(N, G, V)``, ``order`` its row order
     (``ops.row_order``) when that geometry is the sort regime, else None,
     and ``ordered`` whether ``values`` arrive in that order (sort only: the
     kernel then reads them in place).  The caller checks all of that.
     Raises if a launch is refused.
     """
-    packed = []
+    packed, recipes = [], []
     for codes, values, out, geom, order, ordered in members:
-        (n, v), g = values.shape, out.shape[0]
+        n, (g, v) = codes.shape[0], out.shape
+        fused = not isinstance(values, torch.Tensor)
+        values_ptr = None if fused else values.data_ptr()
         if geom.regime == _launch.SEG_SORT:
             geom = _launch.sort_launch(geom, v, order.n_items, order.n_slots, order.n_splits)
             if not geom.blocks:  # no row has a code in [0, G): out keeps the identity
                 continue
-            packed.append((geom, None if ordered else order.perm.data_ptr(), values.data_ptr(),
+            packed.append((geom, None if ordered else order.perm.data_ptr(), values_ptr,
                            out.data_ptr(), order.table.data_ptr(), n, g, v, order.n_items,
                            order.n_splits, ordered))
         else:
-            packed.append((geom, codes.data_ptr(), values.data_ptr(), out.data_ptr(), None,
+            packed.append((geom, codes.data_ptr(), values_ptr, out.data_ptr(), None,
                            n, g, v, 0, 0, False))
+        recipes.append(_seg_recipe(values) if fused else None)
     if not packed:
         return 0
     device = members[0][0].device
     kern = KERNELS[name]
-    launches = _launch.pack_members(packed)
+    launches = _launch.pack_members(packed, recipes)
     for one in launches:
         ws = kern.scratch(device, one)[0] if one.ws else None
-        kern(device, ctypes.addressof(one.table), OP_CODES[op], ws, members=one.table.count)
+        fused = None if one.recipes is None else ctypes.addressof(one.recipes)
+        kern(device, ctypes.addressof(one.table), fused, OP_CODES[op], ws,
+             members=one.table.count)
     return len(launches)

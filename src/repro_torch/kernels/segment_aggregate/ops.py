@@ -24,6 +24,14 @@ order (:func:`code_order`, :func:`in_code_order`, each copy kept while both
 the codes and the input live), so its gather ⊗ σ writes the slab in code
 order.  A lift's copies die with the lift, when the plan cache drops it.
 
+A message's values can also come as a :class:`Recipe` instead of a slab:
+the lift, the gathered messages and the σ predicates that the plan layer's
+rowwise stage would combine into the slab.  The kernels then compute each
+value where they would have read it, in the same order, so the output has
+the bits of the same message reduced from the slab (``ref.py``'s
+:func:`~.ref.recipe_values` materializes a recipe as the rowwise stage
+does); no (N, V) field is written.
+
 Sharded composition: both :func:`aggregate_op` and :func:`level_aggregate`
 are *shard-local* — under ``repro_torch.core.distributed.shard_map`` they
 see the shard's row block (codes and value slab sliced on the leading
@@ -46,13 +54,15 @@ from repro_torch import trace
 from repro_torch.kernels import launch as _launch
 
 from . import kernel
-from .ref import IDENTITY, level_segment_aggregate_ref, segment_aggregate_ref
+from .ref import IDENTITY, level_segment_aggregate_ref, recipe_values, segment_aggregate_ref
 
 # kernel launches since the last reset_launches(), by kernel name
 LAUNCHES = {"segment_aggregate": 0, "level_segment_aggregate": 0}
 # messages those launches reduced, by regime (the sort regime by form: read
-# through the row order, or in code order)
+# through the row order, or in code order), slab members and fused members
 MEMBERS = {"thread": 0, "warp": 0, "sort": 0, "sort_ordered": 0}
+# ... of them the fused members (a Recipe, no slab), by regime
+FUSED_MEMBERS = {"thread": 0, "warp": 0, "sort": 0, "sort_ordered": 0}
 # row orders built (row_order calls made by cached_row_order) and inputs
 # copied into code order (by in_code_order) since import
 ORDER_BUILDS = {"orders": 0, "copies": 0}
@@ -61,7 +71,7 @@ _INT32_MAX = 2**31 - 1
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, MEMBERS):
+    for counts in (LAUNCHES, MEMBERS, FUSED_MEMBERS):
         for name in counts:
             counts[name] = 0
 
@@ -84,6 +94,100 @@ def _checked_out(codes: torch.Tensor, values: torch.Tensor, num_segments: int,
         raise ValueError(f"output of {num_segments} x {values.shape[1]} is out of range")
     return torch.full((num_segments, values.shape[1]), IDENTITY[op],
                       dtype=torch.float32, device=codes.device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Recipe:
+    """A message's (N, V) values given by their parts, as the plan layer's
+    rowwise stage combines them (``core/plans.py``): row r's value at lane
+    c is ``((lift[r] ⊗ T_1[i_1[r], l_1[c]]) ⊗ T_2[i_2[r], l_2[c]]) ⊗ …``,
+    the messages' ⊗ in order, then 0̄ (the ⊕-identity) where some σ
+    predicate's mask is false at the row's code.
+
+    ``lift`` (N,) float32; ``messages`` up to ``launch.SEG_MAX_MESSAGES``
+    of ``(index, table, lane_cols)``: ``index`` (N,) int32 rows of
+    ``table`` (R, C) float32, or None for a broadcast message (row 0), and
+    ``lane_cols`` (V,) int32 the column of ``table`` that each lane reads;
+    ``preds`` up to ``launch.SEG_MAX_PREDICATES`` of ``(codes, mask)``:
+    ``codes`` (N,) int32 into the bool ``mask``; ``add``: ⊗ is + (tropical
+    rings), else ×; ``lanes``: V (1 with no message).  Indices and codes
+    must lie in their table's rows and mask (the caller's codes do: the
+    kernels read them unchecked, as the rowwise stage's gathers would
+    have).  Every tensor is contiguous on the codes' device."""
+
+    lift: torch.Tensor
+    messages: tuple = ()
+    preds: tuple = ()
+    add: bool = False
+    lanes: int = 1
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the kernel reads of it: its row columns (lift, indices, σ
+        codes), tables, lane columns and masks."""
+        tensors = [self.lift, *(t for m in self.messages for t in m if t is not None),
+                   *(t for p in self.preds for t in p)]
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _check_recipe(codes: torch.Tensor, recipe: Recipe, num_segments: int) -> None:
+    """Raise, as a slab of the wrong kind would, unless every tensor of
+    ``recipe`` is what the kernels read: the dtype, the shape against the
+    codes' N and its lanes, contiguous, on the codes' device; at most
+    ``launch.SEG_MAX_MESSAGES`` messages and ``SEG_MAX_PREDICATES`` σ
+    predicates.  The same checks hold on the CPU, whose plain version
+    would read any of it."""
+    if codes.dtype != torch.int32 or codes.dim() != 1 or not codes.is_contiguous():
+        raise ValueError(f"need contiguous int32 codes (N,), got {codes.dtype} "
+                         f"{tuple(codes.shape)}")
+    n, v = codes.shape[0], recipe.lanes
+    if len(recipe.messages) > _launch.SEG_MAX_MESSAGES:
+        raise ValueError(f"a recipe of {len(recipe.messages)} messages: at most "
+                         f"{_launch.SEG_MAX_MESSAGES}")
+    if len(recipe.preds) > _launch.SEG_MAX_PREDICATES:
+        raise ValueError(f"a recipe of {len(recipe.preds)} σ predicates: at most "
+                         f"{_launch.SEG_MAX_PREDICATES}")
+    if v < 1 or (not recipe.messages and v != 1):
+        raise ValueError(f"a recipe of {len(recipe.messages)} messages has {v} lanes")
+
+    def check(t, what, dtype, shape):
+        """``shape``: the tensor's, or its number of dims."""
+        if t.device != codes.device:
+            raise ValueError(f"{what} on {t.device}, codes on {codes.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
+        if (t.dim() != shape) if isinstance(shape, int) else (tuple(t.shape) != shape):
+            raise ValueError(f"{what} has shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+
+    check(recipe.lift, "the lift", torch.float32, (n,))
+    for k, (index, table, lane_cols) in enumerate(recipe.messages):
+        if index is not None:
+            check(index, f"message {k}'s index", torch.int32, (n,))
+        check(table, f"message {k}'s table", torch.float32, 2)
+        check(lane_cols, f"message {k}'s lane columns", torch.int32, (v,))
+        if table.numel() == 0 or table.numel() > _INT32_MAX:
+            raise ValueError(f"message {k}'s table has shape {tuple(table.shape)}")
+    for p, (pcodes, mask) in enumerate(recipe.preds):
+        check(pcodes, f"σ predicate {p}'s codes", torch.int32, (n,))
+        check(mask, f"σ predicate {p}'s mask", torch.bool, 1)
+        if mask.numel() == 0:
+            raise ValueError(f"σ predicate {p}'s mask is empty")
+    if num_segments <= 0 or num_segments * v > _INT32_MAX:
+        raise ValueError(f"output of {num_segments} x {v} is out of range")
+
+
+def _checked_recipe(codes: torch.Tensor, recipe: Recipe, num_segments: int,
+                    op: str) -> torch.Tensor:
+    """``_checked_out`` for a fused member (:func:`_check_recipe`)."""
+    if op not in IDENTITY:
+        raise ValueError(f"unknown segment op {op!r}")
+    if codes.device.type != "cuda":
+        raise ValueError(f"codes on {codes.device}: the kernels need CUDA codes")
+    _check_recipe(codes, recipe, num_segments)
+    return torch.full((num_segments, recipe.lanes), IDENTITY[op], dtype=torch.float32,
+                      device=codes.device)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -240,7 +344,8 @@ def _launch_members(name: str, items: list, op: str) -> None:
     CUDA messages and count its launches and messages."""
     members = []
     for codes, values, out, ordered in items:
-        (n, v), g = values.shape, out.shape[0]
+        n, (g, v) = codes.shape[0], out.shape
+        fused = isinstance(values, Recipe)
         geom = _launch.segment_geometry(n, g, v)
         sort = geom.regime == _launch.SEG_SORT
         if ordered and not sort:
@@ -248,19 +353,28 @@ def _launch_members(name: str, items: list, op: str) -> None:
                              f"is the {geom.name} regime")
         order = cached_row_order(codes, g, geom.chunk) if sort else None
         members.append((codes, values, out, geom, order, ordered))
-        MEMBERS["sort_ordered" if ordered else geom.name] += 1
+        form = "sort_ordered" if ordered else geom.name
+        MEMBERS[form] += 1
+        FUSED_MEMBERS[form] += fused
         if trace.on():
             trace.record("kernels.segment", kernel=name, n=n, g=g, v=v,
-                         elem_bytes=values.element_size(), regime=geom.name, ordered=bool(ordered),
+                         elem_bytes=4 if fused else values.element_size(),
+                         regime=geom.name, ordered=bool(ordered),
                          n_items=order.n_items if sort else 0,
                          table_bytes=order.table.numel() * order.table.element_size() if sort
-                         else 0)
+                         else 0, fused=fused, msgs=len(values.messages) if fused else 0,
+                         preds=len(values.preds) if fused else 0,
+                         recipe_bytes=values.nbytes if fused else 0)
     LAUNCHES[name] += kernel.launch(name, members, op)
 
 
-def _plain(codes: torch.Tensor, values: torch.Tensor, num_segments: int, op: str,
+def _plain(codes: torch.Tensor, values, num_segments: int, op: str,
            ordered: bool) -> torch.Tensor:
-    """The plain version; values in code order are reduced at their codes."""
+    """The plain version; values in code order are reduced at their codes, a
+    recipe's materialized first (``ref.recipe_values``)."""
+    if isinstance(values, Recipe):
+        _check_recipe(codes, values, num_segments)
+        values = recipe_values(values, IDENTITY[op])
     if ordered:
         order = code_order(codes, num_segments, values.shape[1])
         if order is None:
@@ -269,23 +383,26 @@ def _plain(codes: torch.Tensor, values: torch.Tensor, num_segments: int, op: str
     return segment_aggregate_ref(codes, values.to(torch.float32), num_segments, op)
 
 
-def aggregate_op(codes: torch.Tensor, values: torch.Tensor, num_segments: int,
+def aggregate_op(codes: torch.Tensor, values, num_segments: int,
                  op: str = "sum", ordered: bool = False) -> torch.Tensor:
     """``out[g, v] = ⊕_{n: codes[n] = g} values[n, v]``, ⊕ ∈ {sum, min, max}.
 
     ``codes`` (N,) int32 in [0, G); ``values`` (N, V) float32, or (N,) which
-    returns (G,).  Empty groups hold the ⊕-identity (0 / +inf / -inf).
-    ``ordered``: row i of ``values`` is row ``perm[i]`` of the message, perm
-    the row order of ``codes`` (:func:`code_order`, which must be the sort
-    regime's); the bits equal those of the message in row order.
+    returns (G,), or a :class:`Recipe` of V lanes (a fused member: the
+    kernel computes each value; out (G, V)).  Empty groups hold the
+    ⊕-identity (0 / +inf / -inf).  ``ordered``: row i of ``values`` (of a
+    recipe's row columns) is row ``perm[i]`` of the message, perm the row
+    order of ``codes`` (:func:`code_order`, which must be the sort regime's);
+    the bits equal those of the message in row order.
     """
-    squeeze = values.dim() == 1
+    fused = isinstance(values, Recipe)
+    squeeze = not fused and values.dim() == 1
     if squeeze:
         values = values[:, None]
     if codes.device.type == "cpu":
         out = _plain(codes, values, num_segments, op, ordered)
     else:
-        out = _checked_out(codes, values, num_segments, op)
+        out = (_checked_recipe if fused else _checked_out)(codes, values, num_segments, op)
         if codes.shape[0]:
             _launch_members("segment_aggregate", [(codes, values, out, ordered)], op)
     return out[:, 0] if squeeze else out
@@ -310,10 +427,11 @@ def level_aggregate(items, op: str = "sum") -> list[torch.Tensor]:
     ``launch.SEG_MAX_MEMBERS`` messages).
 
     Item j is one same-level message: ``codes`` (n_j,) segment ids in
-    [0, g_j), ``values`` (n_j, v_j), and optionally a fourth element
-    ``ordered`` (as :func:`aggregate_op`'s).  Each message is a member of
-    the launch's table with its own tensors and partition, so its output
-    has the same bits as ``aggregate_op`` gives it alone.  Returns the
+    [0, g_j), ``values`` (n_j, v_j) or a :class:`Recipe` of v_j lanes, and
+    optionally a fourth element ``ordered`` (as :func:`aggregate_op`'s).
+    Each message is a member of the launch's table with its own tensors and
+    partition, so its output has the same bits as ``aggregate_op`` gives it
+    alone.  Returns the
     per-item (g_j, v_j) outputs.  On the CPU the plain version reduces each
     item.
     """
@@ -324,8 +442,11 @@ def level_aggregate(items, op: str = "sum") -> list[torch.Tensor]:
     outs, members = [], []
     for codes, values, g, *rest in items:
         codes = codes.to(torch.int32).contiguous()
-        values = values.to(torch.float32).contiguous()
-        out = _checked_out(codes, values, g, op)
+        if isinstance(values, Recipe):
+            out = _checked_recipe(codes, values, g, op)
+        else:
+            values = values.to(torch.float32).contiguous()
+            out = _checked_out(codes, values, g, op)
         outs.append(out)
         if codes.shape[0]:
             members.append((codes, values, out, bool(rest and rest[0])))

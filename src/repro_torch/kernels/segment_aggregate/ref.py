@@ -39,3 +39,32 @@ def level_segment_aggregate_ref(codes: torch.Tensor, values: torch.Tensor,
     """The level kernel's function on its concatenated operands: global
     segment ids, pad rows (code -1) match nothing."""
     return segment_aggregate_ref(codes, values, total_segments, op)
+
+
+def recipe_values(recipe, zero: float) -> torch.Tensor:
+    """A recipe's (N, V) float32 values, materialized as the plan layer's
+    rowwise stage materializes them: the lift, ⊗ each message's table rows
+    (``index_select`` at the row's index, row 0 for a broadcast message)
+    at the lanes' columns, in message order, then ``masked_fill`` with
+    ``zero`` (0̄) where a σ predicate's mask is false at the row's code."""
+    x = recipe.lift.to(torch.float32)[:, None]
+    n = x.shape[0]
+    for index, table, lanes in recipe.messages:
+        rows = table[:1].expand(n, -1) if index is None else table.index_select(0, index)
+        g = rows.index_select(1, lanes)
+        x = x + g if recipe.add else x * g
+    if recipe.preds:
+        (codes, mask), *rest = recipe.preds
+        keep = mask[codes]
+        for codes, mask in rest:
+            keep = keep & mask[codes]
+        x = x.masked_fill(~keep[:, None], zero)
+    return x
+
+
+def recipe_aggregate_ref(codes: torch.Tensor, recipe, num_segments: int,
+                         op: str = "sum") -> torch.Tensor:
+    """The segment kernels' function on a fused member: its recipe's values
+    materialized (:func:`recipe_values`, 0̄ the ⊕-identity), then
+    :func:`segment_aggregate_ref`."""
+    return segment_aggregate_ref(codes, recipe_values(recipe, IDENTITY[op]), num_segments, op)

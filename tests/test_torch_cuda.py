@@ -27,6 +27,8 @@ AdamW on identical gradients to rtol 1e-5 / atol 1e-7, its bfloat16 first
 moment to one bf16 ulp.  Steps under the sharding rules equal steps without
 them bit for bit."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -38,7 +40,8 @@ from repro_torch.core import Query, Treant
 from repro_torch.core import semiring as sr
 from repro_torch.kernels import launch
 from repro_torch.kernels.segment_aggregate import ops
-from repro_torch.kernels.segment_aggregate.ref import segment_aggregate_ref
+from repro_torch.kernels.segment_aggregate.ref import (IDENTITY, recipe_values,
+                                                       segment_aggregate_ref)
 from repro_torch.kernels.semiring_contract import ops as sc_ops
 from repro_torch.kernels.semiring_contract.ref import semiring_contract_ref
 from repro_torch.kernels.tropical_contract import ops as tc_ops
@@ -54,7 +57,7 @@ from repro_torch.runtime import sharding as lm_sharding
 from repro_torch.runtime import step as lm_step
 from repro_torch.runtime.step import make_decode_step, make_prefill_step
 from repro_torch.relational import schema
-from repro_torch.relational.relation import mask_in
+from repro_torch.relational.relation import Catalog, mask_in, mask_range
 
 pytestmark = pytest.mark.gpu
 
@@ -587,30 +590,52 @@ def test_cuda_four_session_storm_matches_cpu(cuda):
 
 
 def test_cuda_split_level_launch_matches_one_launch_and_cpu(cuda, monkeypatch):
-    """A fused level launch split over several launches (padded operands
-    past ``plans.ROWWISE_MAX_ELEMS``) gives, on the card, the same messages
-    bit for bit as one launch and as the CPU (COUNT-valued sums)."""
+    """A level launch split over several launches (padded operands past
+    ``plans.ROWWISE_MAX_ELEMS``) gives, on the card, the same messages bit
+    for bit as one launch and as the CPU.  MOMENTS members keep their slabs,
+    so the lowered cut splits them; the SUM ring's members are fused (a
+    recipe, no slab) and hold nothing until the launch, so it splits none
+    of them.  The delays are small integers, so every sum is exact in
+    float32 whatever its order and row blocks."""
     from repro_torch.core import plans
 
-    def run(dev):
-        cat = schema.flight(n_flights=20_000)
-        t = Treant(cat, ring=sr.SUM, device=dev, use_plans=True)
-        q = Query.make(cat, ring="sum", group_by=("airport_state", "month", "carrier_group"))
+    base = schema.flight(n_flights=20_000)
+    fl = base.get("Flights")
+    delay = np.minimum(np.rint(fl.measures["dep_delay"] / 4.0), 15.0).astype(np.float32)
+    rels = [dataclasses.replace(fl, measures={"dep_delay": delay}) if name == "Flights"
+            else base.get(name) for name in base.names()]
+
+    def run(dev, ring, measure):
+        cat = Catalog(rels)
+        t = Treant(cat, ring=getattr(sr, ring.upper()), device=dev, use_plans=True)
+        q = Query.make(cat, ring=ring, measure=measure,
+                       group_by=("airport_state", "month", "carrier_group"))
         eng = t.engine_for(q.ring_name, q.measure)
         ops.reset_launches()
         eng.calibrate(q)
-        out = [eng.execute(q.with_group_by(*g))[0].field.cpu()
+        out = [sr.leaves(eng.execute(q.with_group_by(*g))[0].field)
                for g in (("airport_state", "month", "carrier_group"), ("dow",),
                          ("airport_size", "delay_bucket"))]
-        return out, ops.LAUNCHES["level_segment_aggregate"]
+        return [x.cpu() for leaves in out for x in leaves], ops.LAUNCHES[
+            "level_segment_aggregate"], sum(ops.FUSED_MEMBERS.values())
 
-    one, one_launches = run("cuda")
-    cpu, _ = run("cpu")
+    rings = (("sum", None), ("moments", ("Flights", "dep_delay")))
+    runs = {}
+    for ring, measure in rings:
+        runs[ring, "one"] = run("cuda", ring, measure)
+        runs[ring, "cpu"] = run("cpu", ring, measure)
     monkeypatch.setattr(plans, "ROWWISE_MAX_ELEMS", 1 << 16)
-    split, split_launches = run("cuda")
-    assert split_launches > one_launches > 0
-    for a, b, c in zip(one, split, cpu):
-        assert torch.equal(a, b) and torch.equal(b, c)
+    for ring, measure in rings:
+        runs[ring, "split"] = run("cuda", ring, measure)
+    for ring, _ in rings:
+        (one, one_launches, fused), (split, split_launches, _), (cpu, _, _) = (
+            runs[ring, k] for k in ("one", "split", "cpu"))
+        if ring == "sum":
+            assert split_launches == one_launches > 0 and fused > 0
+        else:
+            assert split_launches > one_launches > 0 and fused == 0
+        for a, b, c in zip(one, split, cpu):
+            assert torch.equal(a, b) and torch.equal(b, c), ring
 
 
 # float32 sum of n terms in any order: within λ·√n·u of the exact sum
@@ -1085,3 +1110,153 @@ def test_cuda_checkpoint_restores_onto_the_card(cuda, tmp_path):
     got, step = restore_pytree(tmp_path, template=tree, device={"w": cuda, "m": "cpu"})
     assert step == 1 and got["w"].device.type == cuda.type and got["m"].device.type == "cpu"
     assert torch.equal(got["w"], tree["w"]) and torch.equal(got["m"], tree["m"].cpu())
+
+
+# ---------------------------------------------------------------------------
+# fused members: the kernels compute each value from a recipe (lift, gathered
+# messages, σ) with the bits of the slab that the rowwise stage writes
+# ---------------------------------------------------------------------------
+
+# (N, G, lanes of each message; a message of lanes 0 is a broadcast of 3
+# columns' first), regime: the thread grid (one column, several, tiles of
+# 256), warp, sort (W = 1 and W = 4) and the brush shape (G = 17, 52 × 12)
+FUSED_SHAPES = [
+    ((1 << 16, 17, ()), "thread"),
+    ((1 << 16, 17, (4, 3)), "thread"),
+    ((1 << 20, 17, (52, 12)), "thread"),
+    ((1 << 15, 300, (2, 2)), "warp"),
+    ((1 << 15, 5_000, (3,)), "sort"),
+    ((1 << 15, 5_000, (2, 2, 0)), "sort"),
+]
+
+
+def _recipe(n, lane_dims, n_preds, seed, device, op, broadcast=False):
+    """A fused member's recipe of ``n`` rows: a gamma lift, a message per
+    entry of ``lane_dims`` (rows of 50 to 400, gamma values, index in
+    range; 0 lanes: a broadcast message read at its first column; with
+    ``broadcast`` the last message is a broadcast one), lanes row-major over
+    the messages, and ``n_preds`` σ predicates keeping about 70 % of rows."""
+    rng = np.random.default_rng(seed)
+    dims = [d or 1 for d in lane_dims]
+    lanes = int(np.prod(dims)) if dims else 1
+    coords = np.indices(dims).reshape(len(dims), lanes) if dims else np.zeros((0, 1), np.int64)
+    f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=device)  # noqa: E731
+    i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=device)  # noqa: E731
+    messages = []
+    for k, d in enumerate(lane_dims):
+        bcast = d == 0 or (broadcast and k == len(lane_dims) - 1)
+        rows = 1 if bcast else int(rng.integers(50, 400))
+        table = f32(rng.gamma(2.0, 2.0, (rows, max(d, 3))))
+        messages.append((None if bcast else i32(rng.integers(0, rows, n)), table,
+                         i32(coords[k] if d else np.zeros(lanes))))
+    preds = [(i32(rng.integers(0, 11, n)), torch.as_tensor(rng.random(11) < 0.85, device=device))
+             for _ in range(n_preds)]
+    return ops.Recipe(f32(rng.gamma(2.0, 5.0, n)), tuple(messages), tuple(preds),
+                      add=op != "sum", lanes=lanes)
+
+
+def _in_code_order(codes, recipe, g):
+    """``recipe`` with its row columns in the row order of ``codes``."""
+    perm = ops.code_order(codes, g, recipe.lanes).perm.long()
+    return ops.Recipe(recipe.lift[perm], tuple((None if i is None else i[perm], t, l)
+                                               for i, t, l in recipe.messages),
+                      tuple((c[perm], m) for c, m in recipe.preds), recipe.add, recipe.lanes)
+
+
+@pytest.mark.parametrize("shape,regime", FUSED_SHAPES, ids=[str(s) for s, _ in FUSED_SHAPES])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_cuda_fused_member_gives_the_slab_bits(cuda, shape, regime, op):
+    """A fused member through kernel 1 and as a member of a kernel-2 launch
+    beside slab members gives the bits of the same member reduced from the
+    slab its recipe materializes (``recipe_values``, as the rowwise stage
+    writes it), for 0, 1 and 2 σ predicates and a broadcast message, in
+    row order and (sort) in code order; two runs repeat bit for bit."""
+    n, g, lane_dims = shape
+    codes = torch.as_tensor(np.random.default_rng(g).integers(0, g, n).astype(np.int32),
+                            device=cuda)
+    for n_preds in (0, 1, 2):
+        rc = _recipe(n, lane_dims, n_preds, n + g + n_preds, cuda, op,
+                     broadcast=n_preds == 1)
+        assert launch.segment_geometry(n, g, rc.lanes).name == regime
+        slab = recipe_values(rc, IDENTITY[op])
+        want = ops.aggregate_op(codes, slab, g, op)
+        before = dict(ops.FUSED_MEMBERS)
+        got = ops.aggregate_op(codes, rc, g, op)
+        assert torch.equal(got, want)
+        assert torch.equal(ops.aggregate_op(codes, rc, g, op), got)
+        assert sum(ops.FUSED_MEMBERS.values()) == sum(before.values()) + 2
+        other_c, other_x = _inputs(4096, 300, 2, n_preds, cuda)
+        level = ops.level_aggregate([(other_c, _as_op_input(other_x, op), 300), (codes, rc, g),
+                                     (codes, slab, g)], op=op)
+        assert torch.equal(level[1], want) and torch.equal(level[2], want)
+        if regime == "sort":
+            rc_o = _in_code_order(codes, rc, g)
+            assert torch.equal(ops.aggregate_op(codes, rc_o, g, op, ordered=True), want)
+            assert torch.equal(ops.level_aggregate([(codes, rc_o, g, True), (codes, slab, g)],
+                                                   op=op)[0], want)
+        del slab
+    if op == "sum" and n >= 1 << 20:
+        torch.testing.assert_close(got, segment_aggregate_ref(codes, recipe_values(
+            rc, 0.0), g, op), rtol=1e-4, atol=0)
+
+
+def test_cuda_wrapper_rejects_a_malformed_recipe(cuda):
+    codes = torch.zeros(8, dtype=torch.int32, device=cuda)
+    rc = _recipe(8, (3,), 1, 0, cuda, "sum")
+    (idx, table, lanes), = rc.messages
+    with pytest.raises(TypeError):
+        ops.aggregate_op(codes, ops.Recipe(rc.lift.double(), rc.messages, rc.preds,
+                                           lanes=3), 2)
+    with pytest.raises(ValueError):
+        ops.aggregate_op(codes, ops.Recipe(rc.lift.cpu(), rc.messages, rc.preds, lanes=3), 2)
+    with pytest.raises(ValueError):
+        ops.aggregate_op(codes, ops.Recipe(rc.lift, ((idx, table.t(), lanes),), rc.preds,
+                                           lanes=3), 2)
+    with pytest.raises(ValueError):
+        ops.level_aggregate([(codes, ops.Recipe(rc.lift, rc.messages * 4, lanes=3), 2)])
+
+
+def test_cuda_brush_session_fuses_every_sum_flights_contraction(cuda):
+    """A brush-like session over flights (a viz by state × month, 52 × 12
+    lanes carried into Flights from two dimension bags, σ on two of
+    Flights' attributes) hands the kernels a recipe for every SUM
+    contraction over Flights on the card (``fused_execs`` equals the
+    kernel-route executions over Flights, and every segment launch over
+    Flights' rows is a fused member) and answers as the CPU does.  The
+    other kernel-route executions are the dimension tables' bare lifts (no
+    message, no σ), whose slab is the lift itself."""
+    from repro_torch import trace
+
+    cat = schema.flight(n_flights=300_000)
+    base = Query.make(cat, ring="sum", measure=("Flights", "dep_delay"))
+    grid = base.with_group_by("airport_state", "month")
+    brushes = [grid.with_predicate(mask_range(10, 2, 6, attr="delay_bucket")),
+               grid.with_predicate(mask_range(10, 0, 4, attr="delay_bucket"))
+               .with_predicate(mask_in(8, [1, 3], attr="distance_bucket")),
+               base.with_group_by("carrier_id").with_predicate(
+                   mask_in(8, [2], attr="distance_bucket"))]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        t = Treant(cat, ring=sr.SUM, device=dev)
+        trace.take()
+        trace.enable()
+        try:
+            t.register_dashboard("state_month", grid)
+            t.register_dashboard("carrier", base.with_group_by("carrier_id"))
+            answers = [t.interact("anna", "state_month", q).factor.field.cpu() for q in brushes]
+        finally:
+            trace.disable()
+        runs[dev] = answers, t.cache_stats()["plans"], trace.take()
+    (cpu, cpu_stats, _), (gpu, stats, records) = runs["cpu"], runs["cuda"]
+    assert cpu_stats["fused_execs"] == 0
+    members = [r for r in records if r.get("kind") == "plans.member"]
+    assert len(members) == stats["kernel_execs"]
+    assert stats["fused_execs"] == sum(r["rel"] == "Flights" for r in members) > 0
+    assert all(not r["in_elems"] and not r["sigma_cols"] for r in members
+               if r["rel"] != "Flights")
+    bucket = cat.get("Flights").row_bucket
+    flights = [r for r in records if r.get("kind") == "kernels.segment" and r["n"] == bucket]
+    assert flights and all(r["fused"] for r in flights)
+    assert max(r["v"] for r in flights) == 52 * 12
+    for a, b in zip(cpu, gpu):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=0)

@@ -6,6 +6,8 @@ integer-valued floats, so every op — sum included — must agree exactly.
 ``test_torch_cuda.py`` holds the CUDA kernels against these plain versions
 on the card."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -206,9 +208,9 @@ def test_member_table_does_not_depend_on_the_other_members():
         ws += geo.ws
         merge += geo.merge
     blocks[launch.SEG_MERGE] = -(-merge // launch.SEG_WARPS)
-    assert count == [3, 2, 2, 1, 8]
+    assert count == [3, 2, 2, 1, 0, 0, 0, 0, 8]
     assert list(t.members) == count
-    assert list(t.first) == [0, 3, 5, 7, 0]
+    assert list(t.first) == [0, 3, 5, 7, 8, 8, 8, 8, 0] and mixed.recipes is None
     assert list(t.grid) == blocks and list(t.smem) == smem
     assert (mixed.grid, mixed.ws) == (sum(blocks), ws)
     (rev,) = launch.pack_members(members[::-1])
@@ -224,10 +226,14 @@ def test_member_table_does_not_depend_on_the_other_members():
 def test_member_table_layout_matches_the_c_struct():
     """``SegMember`` is ``struct segagg::Member`` (96 bytes, field for field:
     four pointers, three 64-bit counts, then 32-bit fields) and the table
-    (count, five arrays over the three regimes, the sort regime in two
-    forms, and the merge grid, SEG_MAX_MEMBERS members) stays under the 4
-    KiB of a kernel's parameters.  A sort member in code order is flagged
-    by its grid, ``SEG_SORT_ORDERED``, and passes no index."""
+    (count, nine arrays over the three regimes, the sort regime in two
+    forms, for slab members and again for fused ones, and the merge grid,
+    SEG_MAX_MEMBERS members) stays under the 4 KiB of a kernel's
+    parameters.  A sort member in code order is flagged by its grid,
+    ``SEG_SORT_ORDERED``, and passes no index; a fused member by its grid,
+    ``SEG_FUSED`` + that, passes no values and has its ``SegRecipe`` (160
+    bytes, ``struct segagg::Recipe``) in the launch's recipes, in table
+    order."""
     import ctypes
 
     assert ctypes.sizeof(launch.SegMember) == 96
@@ -236,14 +242,30 @@ def test_member_table_layout_matches_the_c_struct():
                      "vt", "tiles", "blocks", "first_block", "aux", "n_items", "n_splits"]
     offsets = [getattr(launch.SegMember, name).offset for name in names]
     assert offsets == [0, 8, 16, 24, 32, 40, 48] + list(range(56, 96, 4))
-    assert (launch.SEG_SORT, launch.SEG_SORT_ORDERED, launch.SEG_MERGE) == (2, 3, 4)
+    assert (launch.SEG_SORT, launch.SEG_SORT_ORDERED, launch.SEG_FUSED, launch.SEG_MERGE) == (
+        2, 3, 4, 8)
     (one,) = launch.pack_members([_member(60_000, 5_000, 1, 1)])
     assert one.table.m[0].regime == launch.SEG_SORT_ORDERED and one.table.m[0].index is None
-    assert list(one.table.members) == [0, 0, 0, 1, 1]
+    assert list(one.table.members) == [0, 0, 0, 1, 0, 0, 0, 0, 1]
     (two,) = launch.pack_members([_member(60_000, 5_000, 1, 2)])
     assert two.table.m[0].regime == launch.SEG_SORT and two.table.m[0].index == 3001
-    assert list(two.table.members) == [0, 0, 1, 0, 1]
-    assert ctypes.sizeof(launch.SegTable) == 8 + 80 + 96 * launch.SEG_MAX_MEMBERS <= 4096 - 16
+    assert list(two.table.members) == [0, 0, 1, 0, 0, 0, 0, 0, 1]
+    assert ctypes.sizeof(launch.SegTable) == 8 + 144 + 96 * launch.SEG_MAX_MEMBERS <= 4096 - 16
+    assert ctypes.sizeof(launch.SegRecipe) == 160
+    assert [getattr(launch.SegRecipe, f).offset for f in ("lift", "idx", "tab", "lane_col",
+                                                          "codes", "mask", "cols", "msgs")] == [
+        0, 8, 32, 56, 80, 104, 128, 140]
+    members = [_member(n, g, v, i) for i, (n, g, v) in enumerate(MEMBERS[:3])]
+    recipes = [None, launch.SegRecipe(lift=7, msgs=1), launch.SegRecipe(lift=9)]
+    members[1] = members[1][:2] + (None,) + members[1][3:]
+    members[2] = members[2][:2] + (None,) + members[2][3:]
+    (mixed,) = launch.pack_members(members, recipes)
+    t = mixed.table
+    assert [t.m[j].regime for j in range(3)] == [
+        launch.SEG_THREAD, launch.SEG_FUSED + launch.SEG_THREAD, launch.SEG_FUSED + launch.SEG_WARP]
+    assert [t.m[j].values for j in range(3)] == [1002, None, None]
+    assert [mixed.recipes.r[j].lift for j in range(2)] == [7, 9]
+    assert list(t.first) == [0, 1, 1, 1, 1, 2, 3, 3, 0]
 
 
 @pytest.mark.parametrize("piece", [1, 3, 64])
@@ -462,3 +484,96 @@ def test_warm_interaction_builds_no_order_and_no_copy():
     assert ops.ORDER_BUILDS == warm
     assert torch.equal(first.factor.field, again.factor.field)
     assert torch.equal(first.factor.field, other.factor.field)
+
+
+# ---------------------------------------------------------------------------
+# fused members: a recipe (lift, gathered messages, σ) instead of a slab
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.segment_aggregate import ref as seg_ref  # noqa: E402
+
+FUSE_RINGS = {"sum": tsr.SUM, "count": tsr.COUNT, "tropical_min": tsr.TROPICAL_MIN,
+              "tropical_max": tsr.TROPICAL_MAX}
+
+
+def _star(ring, seed, n=3_000, groups=17):
+    """A sparse contraction of the brush's form: relation (a, b, c, d), a
+    message over (b, x) and one over (y, d) carrying x and y, a broadcast
+    message over e, σ on c and d, out (a, x, y, e): 5 × 3 × 4 lanes."""
+    rng = np.random.default_rng(seed)
+    doms = {"a": groups, "b": 40, "c": 7, "d": 30, "x": 5, "y": 3, "e": 4}
+    codes = [torch.as_tensor(rng.integers(0, doms[k], n).astype(np.int32)) for k in "abcd"]
+    f32 = lambda *s: torch.as_tensor(rng.gamma(2.0, 3.0, s).astype(np.float32))  # noqa: E731
+    parts = plans._sparse_plan_parts(ring, ("a", "b", "c", "d"), doms,
+                                     (("b", "x"), ("y", "d"), ("e",)), ("c", "d"),
+                                     ("a", "x", "y", "e"), n)
+    masks = (torch.as_tensor(rng.random(7) < 0.7), torch.as_tensor(rng.random(30) < 0.8))
+    a, b, c, d = codes
+    return parts, (f32(n), (f32(40, 5), f32(3, 30), f32(4)), (b, d, None), masks, (c, d), a)
+
+
+@pytest.mark.parametrize("ring", list(FUSE_RINGS))
+def test_recipe_plain_version_is_rowwise_then_the_reference(ring):
+    """The plan's recipe of a contraction, materialized by ``ref.py``
+    (``recipe_values``), is the rowwise stage's slab bit for bit, in row
+    order and in code order, so the wrappers' plain version of a fused
+    member (``recipe_aggregate_ref``) equals ``rowwise`` followed by
+    ``segment_aggregate_ref``."""
+    r = FUSE_RINGS[ring]
+    op = r.kernel_segment_op
+    for groups in (17, 3_000):
+        (fn, slab, _, meta), args = _star(r, 11, groups=groups)
+        seg = args[-1]
+        assert meta.recipe is not None and not meta.fused_on(seg)
+        for ordered in (False, True):
+            _, (values,), in_order = slab(*args, ordered=ordered)
+            rc, rc_in_order = meta.recipe(*args, ordered=ordered)
+            assert rc_in_order == in_order == (ordered and groups == 3_000)
+            assert rc.lanes == 60 and len(rc.messages) == 3 and rc.messages[2][0] is None
+            assert torch.equal(seg_ref.recipe_values(rc, seg_ref.IDENTITY[op]), values)
+            codes = ops.code_order(seg, meta.total, 60).perm.long() if in_order else None
+            codes = seg if codes is None else seg[codes]
+            want = seg_ref.segment_aggregate_ref(codes, values, meta.total, op)
+            assert torch.equal(seg_ref.recipe_aggregate_ref(codes, rc, meta.total, op), want)
+            assert torch.equal(ops.aggregate_op(seg, rc, meta.total, op, ordered=in_order), want)
+            assert torch.equal(ops.level_aggregate([(seg, rc, meta.total, in_order)], op)[0],
+                               want)
+
+
+@pytest.mark.parametrize("ring,messages,preds,fuses", [
+    ("sum", 3, 3, True), ("count", 2, 0, True), ("tropical_min", 1, 2, True),
+    ("tropical_max", 0, 1, True), ("moments", 1, 1, False), ("covariance", 1, 1, False),
+    ("bool", 1, 1, False), ("count_i64", 1, 1, False), ("sum", 4, 0, False),
+    ("sum", 2, 4, False), ("sum", 0, 0, False)])
+def test_recipe_route_reads_the_ring_and_the_counts(ring, messages, preds, fuses):
+    """SUM, float32 COUNT, MIN and MAX hand the kernels a recipe; MOMENTS,
+    covariance, BOOL, int64 COUNT, messages or σ predicates past the
+    kernels' ``SEG_MAX_MESSAGES`` / ``SEG_MAX_PREDICATES``, and a lift with
+    neither (its slab is the lift) keep the slab."""
+    r = tsr.make_covariance_ring(3) if ring == "covariance" else getattr(tsr, ring.upper())
+    assert plans.recipe_route(r, messages, preds) is fuses
+
+
+def test_wrapper_rejects_a_malformed_recipe():
+    """On the CPU, whose plain version would read any of it, the wrappers
+    refuse a recipe the kernels would not take: a lift of another dtype, a
+    tensor of the wrong shape or not contiguous, more messages or σ
+    predicates than the kernels hold, lanes without a message."""
+    (_, _, _, meta), args = _star(tsr.SUM, 2)
+    seg, total = args[-1], meta.total
+    rc, _ = meta.recipe(*args)
+    (idx, table, lanes), *rest = rc.messages
+    bad = [(TypeError, dict(lift=rc.lift.double())),
+           (ValueError, dict(lift=rc.lift[:-1])),
+           (ValueError, dict(messages=((idx, table.t(), lanes), *rest))),
+           (TypeError, dict(messages=((idx.long(), table, lanes), *rest))),
+           (ValueError, dict(messages=rc.messages + rc.messages[:1])),
+           (ValueError, dict(preds=rc.preds * 2)),
+           (TypeError, dict(preds=((rc.preds[0][0], rc.preds[0][1].int()),))),
+           (ValueError, dict(messages=(), lanes=60))]
+    for error, change in bad:
+        broken = dataclasses.replace(rc, **change)
+        with pytest.raises(error):
+            ops.aggregate_op(seg, broken, total)
+        with pytest.raises(error):
+            ops.level_aggregate([(seg, broken, total)])

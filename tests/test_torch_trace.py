@@ -226,7 +226,29 @@ def test_segment_records_match_the_launchs_messages(monkeypatch, n, g, v, ordere
         "regime": regime, "ordered": ordered,
         "n_items": order.n_items if order else 0,
         "table_bytes": order.table.numel() * 4 if order else 0,
+        "fused": False, "msgs": 0, "preds": 0, "recipe_bytes": 0,
     }
+
+
+def test_fused_segment_record_carries_the_recipes_counts(monkeypatch):
+    """A fused member's ``kernels.segment`` record says so, with its
+    messages (K), σ predicates (P) and the bytes of its recipe, which it
+    reads in place of an (N, V) slab."""
+    monkeypatch.setattr(ops.kernel, "launch", lambda name, members, op: 1)
+    rng = np.random.default_rng(3)
+    n, g = 4000, 6
+    i32 = lambda hi: torch.as_tensor(rng.integers(0, hi, n).astype(np.int32))  # noqa: E731
+    lanes = torch.arange(12, dtype=torch.int32)
+    rc = ops.Recipe(torch.ones(n), ((i32(30), torch.ones(30, 4), lanes // 3),
+                                    (None, torch.ones(1, 3), lanes % 3)),
+                    ((i32(7), torch.ones(7, dtype=torch.bool)),), lanes=12)
+    trace.enable()
+    ops._launch_members("segment_aggregate", [(i32(g), rc, torch.zeros(g, 12), False)], "sum")
+    (rec,) = trace.take()
+    assert (rec["fused"], rec["msgs"], rec["preds"], rec["v"], rec["regime"]) == (
+        True, 2, 1, 12, "thread")
+    # lift, index, σ codes (4 B a row each); the tables, lane columns and mask
+    assert rec["recipe_bytes"] == rc.nbytes == 12 * n + 4 * (120 + 12 + 3 + 12) + 7
 
 
 def test_kernel_launch_span_carries_symbol_and_members(monkeypatch):

@@ -194,14 +194,23 @@ def child(tree: Path, label: str, first_new: bool) -> dict:
     captured: dict = {}
     real = {"segment_aggregate": ops.aggregate_op, "level_segment_aggregate": ops.level_aggregate}
 
+    def slab(x, op):
+        """A fused member's recipe as the slab it materializes."""
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        from repro_torch.kernels.segment_aggregate import ref
+        return cs.materialize(torch, ref, x, ref.IDENTITY[op])
+
     def keep(name, items, op):
-        size = sum(m[1].numel() for m in items)
+        size = sum(m[0].numel() * (m[1].lanes if hasattr(m[1], "lanes") else m[1].shape[-1])
+                   for m in items)
         if name not in captured or size > captured[name][1]:
-            captured[name] = ([(c.clone(), x.clone(), *rest) for c, x, *rest in items], size,
+            captured[name] = ([(c.clone(), slab(x, op), *rest) for c, x, *rest in items], size,
                               op)
 
     def aggregate_op(codes, values, num_segments, op="sum", **kw):
-        keep("segment_aggregate", [(codes, values if values.dim() == 2 else values[:, None],
+        keep("segment_aggregate", [(codes, values if not isinstance(values, torch.Tensor)
+                                    or values.dim() == 2 else values[:, None],
                                     num_segments, *kw.values())], op)
         return real["segment_aggregate"](codes, values, num_segments, op, **kw)
 

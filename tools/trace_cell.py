@@ -30,7 +30,10 @@ writes the report, ``<out>/<workload>.<seed>.<mode>.json``, and its text,
   records: inputs read once over real rows, the output written once) over
   the device time of ``plans.contraction``, and segment kernels 1-2
   (``kernels.segment`` records: ``chip_smoke.py``'s ``bound_ms`` and
-  ``ordered_bound_ms`` bytes) over their device time.
+  ``ordered_bound_ms`` bytes, a fused member's recipe in place of its
+  values) over their device time.  A fused member has no rowwise stage: its
+  device time is kernel 1-2 time under its ``plans.reduce``, inside its
+  ``plans.contraction``.
 
 Modes (``--mode``): ``slice`` (the report), ``off`` (no span, no profiler),
 ``spans`` (``trace.enable()`` over the window, no profiler) and ``window``
@@ -244,11 +247,14 @@ def member_bytes(r: dict) -> int:
 def segment_bytes(r: dict) -> int:
     """``chip_smoke.py``'s ``bound_ms`` bytes (codes 4N, values N·V, the
     output 4GV), or ``ordered_bound_ms``'s (values, the work-item table, the
-    output) for values in code order."""
+    output) for values in code order; a fused member reads its recipe
+    (``recipe_bytes``: lift, index and σ code columns, tables, lane columns,
+    masks) in place of the values."""
     out = r["g"] * r["v"] * 4
+    values = r["recipe_bytes"] if r.get("fused") else r["n"] * r["v"] * r["elem_bytes"]
     if r["ordered"]:
-        return r["n"] * r["v"] * r["elem_bytes"] + r["table_bytes"] + out
-    return r["n"] * 4 + r["n"] * r["v"] * r["elem_bytes"] + out
+        return values + r["table_bytes"] + out
+    return r["n"] * 4 + values + out
 
 
 def pct(values, q):
