@@ -48,13 +48,19 @@ def metrics_for(bench: dict, workload: str, trace: bool) -> list[dict]:
     return [m for m in entries if workload in m.get("workloads", [workload])]
 
 
-def reader(name: str, bench_dir: Path = BENCH_DIR):
-    """The ``read(run)`` function of ``metrics/<name>.py``."""
+def metric(name: str, bench_dir: Path = BENCH_DIR):
+    """The module ``metrics/<name>.py``: its ``read(run)`` and its ``CASE``,
+    (a synthetic run, the value ``read`` must give on it)."""
     path = bench_dir / "metrics" / f"{name}.py"
     spec = importlib.util.spec_from_file_location("treantbench_metric_" + name.replace(".", "_"), path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(name: str, bench_dir: Path = BENCH_DIR):
+    """The ``read(run)`` function of ``metrics/<name>.py``."""
+    return metric(name, bench_dir).read
 
 
 def limits_of(workload: str, bench_dir: Path = BENCH_DIR) -> dict:

@@ -28,13 +28,33 @@ SAMPLE = 128
 CONTROLS = ("bf16_sum", "bf16_inputs")
 
 
-def sample(run, seed: int) -> list:
-    """Up to ``SAMPLE`` of the window's event checks, drawn from the seed."""
-    rng = np.random.default_rng([seed, 7])
-    idx = range(len(run.checks))
-    if len(run.checks) > SAMPLE:
-        idx = sorted(rng.choice(len(run.checks), SAMPLE, replace=False).tolist())
-    return [run.checks[i] for i in idx]
+class Reservoir:
+    """Up to ``SAMPLE`` of a window's events, a uniform sample drawn from
+    ``[seed, 7]`` as they come (Algorithm R): the i-th event (from 0) takes
+    slot i while i < ``SAMPLE``, and after that the slot of a number drawn
+    from [0, i], if that is a slot.  The same seed and count of events give
+    the same sample, and only a sampled event's check is made."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng([seed, 7])
+        self.seen = 0
+        self.kept: list = []     # slot -> (event index, check)
+
+    def offer(self, make) -> None:
+        """Count one more event, and keep ``make()`` if it is drawn."""
+        i = self.seen
+        self.seen += 1
+        j = i if i < SAMPLE else int(self.rng.integers(0, i + 1))
+        if j < SAMPLE:
+            entry = (i, make())
+            if j == len(self.kept):
+                self.kept.append(entry)
+            else:
+                self.kept[j] = entry
+
+    def checks(self) -> list:
+        """The kept checks, in event order."""
+        return [c for _, c in sorted(self.kept, key=lambda e: e[0])]
 
 
 def reference(tables, device: str) -> JoinedFact:

@@ -83,9 +83,9 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, control: bool
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     fact = check.reference(tables, device)
-    checks = check.sample(run, seed)
-    readings = check.compare(torch, fact, checks, run.render_mismatch)
-    controlled = ({c: check.compare(torch, fact, checks, 0, control=c) for c in check.CONTROLS}
+    readings = check.compare(torch, fact, run.checks, run.render_mismatch)
+    controlled = ({c: check.compare(torch, fact, run.checks, 0, control=c)
+                   for c in check.CONTROLS}
                   if control else None)
     ref_s = time.perf_counter() - t0
     del fact

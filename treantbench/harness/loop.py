@@ -5,20 +5,26 @@ One analyst's events are applied back to back through ``Session.apply``
 (``"idle"``: a ``Session.idle`` under a policy after every event, inside
 the window).  Set-up (data, catalog, ``open_session``, the mix's
 ``context`` events and ``warm_steps`` events) is done before the window;
-the window then runs for ``seconds``.  Every rendered factor is kept (a
+the window then runs for ``seconds``.  The rendered factors of a seeded
+reservoir of the window's events (:class:`.check.Reservoir`) are kept (a
 device copy) for the comparison with the reference after the window
-closes.
+closes; no other work of the window grows with its length.  Set-up ends
+with ``gc.freeze()``: the objects made by then (tables, catalog, plans,
+the session) leave the collector's generations, so its full passes inside
+the window walk only what the window makes (``gc.unfreeze()`` when it
+closes).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from contextlib import nullcontext
 
 from treantbench.reference.dashboard import DashState
 
-from . import program
+from . import check, program
 from .events import EventGenerator
 
 
@@ -37,9 +43,9 @@ class EventRec:
 
 @dataclasses.dataclass
 class Check:
-    """What one event rendered, beside what the reference says it had to
-    render: ``queries`` (viz → the reference's query) and ``outputs``
-    (viz → (attrs, factor copy))."""
+    """What one sampled event rendered, beside what the reference says it
+    had to render: ``queries`` (viz → the reference's query) and
+    ``outputs`` (viz → (attrs, factor copy))."""
 
     queries: dict
     outputs: dict
@@ -54,7 +60,7 @@ class Run:
     allocated_end: int = 0
     events: list = dataclasses.field(default_factory=list)
     idles: list = dataclasses.field(default_factory=list)   # think time: (t0, t1)
-    checks: list = dataclasses.field(default_factory=list)
+    checks: list = dataclasses.field(default_factory=list)   # the sample, in event order
     render_mismatch: int = 0
     plans_built: int = 0
     trace: dict | None = None
@@ -92,9 +98,7 @@ def run_cell(torch, tables, mix: dict, config: dict, seed: int, seconds: float,
     state = DashState(vizzes, tables.domains)
     gen = EventGenerator(mix["events"], vizzes, tables.domains, seed, stream=1)
     traced = tracer is not None
-
-    def keep(res_outputs: dict) -> dict:
-        return {v: (tuple(f.attrs), f.field.clone()) for v, f in res_outputs.items()}
+    sample = check.Reservoir(seed)
 
     def do_event(ev: dict, timed: bool) -> None:
         state.apply(ev)
@@ -107,17 +111,17 @@ def run_cell(torch, tables, mix: dict, config: dict, seed: int, seconds: float,
             sync()
             t1 = time.perf_counter()
             l1 = program.launches()
-        outputs = keep({v: r.factor for v, r in res.results.items()})
-        if set(outputs) != set(expected):
+        if set(res.results) != set(expected):
             run.render_mismatch += 1
         if not timed:
             return
+        sample.offer(lambda: Check(expected, {v: (tuple(r.factor.attrs), r.factor.field.clone())
+                                              for v, r in res.results.items()}))
         st = [r.stats for r in res.results.values()]
         run.events.append(EventRec(
             ev["kind"], t0, t1, sum(s.messages_computed for s in st),
             sum(s.messages_reused for s in st), len(st), l1 - l0,
             sum(s.bin_cube_hits for s in st), sum(s.prefetch_hits for s in st)))
-        run.checks.append(Check(expected, outputs))
         if policy is not None:
             with record_function(torch, "tb.idle", traced):
                 t0 = time.perf_counter()
@@ -137,6 +141,8 @@ def run_cell(torch, tables, mix: dict, config: dict, seed: int, seconds: float,
         tracer.warm()
     plans0 = _plans_built(t)
     sync()
+    gc.collect()
+    gc.freeze()
     w0 = time.perf_counter()
     run.setup_s = w0 - t_start
     while True:
@@ -148,6 +154,8 @@ def run_cell(torch, tables, mix: dict, config: dict, seed: int, seconds: float,
         do_event(gen.next(state), timed=True)
     sync()
     run.window_s = time.perf_counter() - w0
+    gc.unfreeze()
+    run.checks = sample.checks()
     if tracer is not None:
         run.trace = tracer.finish()
     run.plans_built = _plans_built(t) - plans0

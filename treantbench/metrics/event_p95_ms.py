@@ -4,6 +4,13 @@ device sync), over all its events."""
 import numpy as np
 
 
+def CASE():
+    """The synthetic run (treantbench/tests/synthetic.py) and what read() gives on it."""
+    from treantbench.tests import synthetic
+
+    return synthetic.run(), 1000.0
+
+
 def read(run):
     if not run.events:
         return None

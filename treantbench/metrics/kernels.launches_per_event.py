@@ -3,6 +3,13 @@
 window's events."""
 
 
+def CASE():
+    """The synthetic run (treantbench/tests/synthetic.py) and what read() gives on it."""
+    from treantbench.tests import synthetic
+
+    return synthetic.run(), (5 + 1) / 2
+
+
 def read(run):
     if not run.events:
         return None

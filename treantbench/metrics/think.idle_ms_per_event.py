@@ -3,6 +3,13 @@
 events."""
 
 
+def CASE():
+    """The synthetic run (treantbench/tests/synthetic.py) and what read() gives on it."""
+    from treantbench.tests import synthetic
+
+    return synthetic.run(), (250 + 50) / 2
+
+
 def read(run):
     if not run.events or not run.idles:
         return None

@@ -8,6 +8,7 @@ import dataclasses
 
 import pytest
 
+from treantbench.harness import check
 from treantbench.tests import tiny
 
 CELLS = ("flight.brush", "flight.explore")
@@ -101,4 +102,58 @@ def test_fault_fails(cell, fault, monkeypatch):
         "half_rows": lambda t, s: _half_rows(t, s, monkeypatch),
     }[fault]
     line, _ = tiny.execute(cell, prepare=plant)
+    assert not line["correct"], line["check"]
+
+
+@pytest.mark.parametrize("count", [5, 128, 129, 1000, 7300])
+def test_reservoir_repeats_for_a_seed_and_keeps_at_most_sample(count):
+    def picks(seed):
+        r = check.Reservoir(seed)
+        for i in range(count):
+            r.offer(lambda i=i: i)
+        return r.checks()
+
+    seed = 2**31 + 99
+    a, b = picks(seed), picks(seed)
+    assert a == b == sorted(a) and len(set(a)) == len(a) == min(count, check.SAMPLE)
+    assert all(0 <= i < count for i in a)
+    if count > 2 * check.SAMPLE:
+        assert picks(seed + 1) != a and max(a) >= check.SAMPLE
+
+
+def _stale_in(indices):
+    """Fault: the timed events at ``indices`` return each viz's previous
+    answer."""
+    def plant(treant, session):
+        last, seen = {}, [0]
+        real = type(session).apply
+
+        def apply(self, event):
+            res = real(self, event)
+            k, seen[0] = seen[0], seen[0] + 1
+            for viz, r in res.results.items():
+                fresh = r.factor
+                if k in indices and viz in last:
+                    r.factor = last[viz]
+                last[viz] = fresh
+            return res
+
+        session.apply = apply.__get__(session)
+    return plant
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_stale_answer_in_a_sampled_event_fails(cell, monkeypatch):
+    monkeypatch.setattr(check, "SAMPLE", 4)
+    seed, events = 2**31 + 12345, 16
+    r = check.Reservoir(seed)
+    for i in range(events):
+        r.offer(lambda i=i: i)
+    late = [i for i in r.checks() if i >= check.SAMPLE]   # drawn in place of a kept one
+    assert late
+    sound, notes = tiny.execute(cell, seed=seed, events=events)
+    assert sound["correct"], sound["check"]
+    answers = int(next(n for n in notes if "answers" in n).split("answers ")[1].split()[0])
+    assert 0 < answers <= 4 * 8
+    line, _ = tiny.execute(cell, seed=seed, events=events, prepare=_stale_in(set(late)))
     assert not line["correct"], line["check"]
