@@ -63,6 +63,7 @@ from .factor import Factor, contract
 from .hypertree import JTree
 from .plans import (
     AbsorbItem,
+    UNION_MAX_ELEMS,
     PlanCache,
     absorb_batch_key,
     batch_calibration_default,
@@ -726,7 +727,9 @@ class CJTEngine:
         with trace.span("cjt.message") as sp:
             if trace.on():
                 sp.set(edge=f"{u}->{v}", rows=self._bag_rows(q, u),
-                       width=int(np.prod([self.jt.domains.get(a, 1) for a in gamma])))
+                       width=int(np.prod([self.jt.domains.get(a, 1) for a in gamma])),
+                       level=self.jt.height(u, v),
+                       from_measure=bool(q.measure) and q.measure[0] in self.jt.relations_of(u))
             f = self._bag_contract(q, u, incoming, out_attrs, placement, stats)
             self.store.put(base, gamma, f, cost=self._edge_cost_hint(q, u, out_attrs))
         if stats:
@@ -1313,7 +1316,8 @@ class CJTEngine:
         signatures are γ-independent and the store narrows a wider cached
         message on lookup (Σ-compensation).  Greedy first-fit, bounded by
         ``calibration_union_budget()`` (read on every call) on the γ-domain
-        product of the widest message.
+        product of the widest message and by ``UNION_MAX_ELEMS`` on its
+        elements.
         """
         budget = calibration_union_budget()
         slots: list[tuple[str, Query, tuple[str, ...]]] = []
@@ -1323,7 +1327,8 @@ class CJTEngine:
                     continue
                 merged = tuple(dict.fromkeys(union + q.group_by))
                 lanes = int(np.prod([self.jt.domains.get(a, 1) for a in merged]))
-                if merged == union or lanes <= budget:
+                if merged == union or (lanes <= budget and self.widest_message(
+                        rep.with_group_by(*merged)) <= UNION_MAX_ELEMS):
                     slots[j] = (sk, rep, merged)
                     break
             else:
@@ -1335,6 +1340,14 @@ class CJTEngine:
                 seen.add(eff.digest)
                 out.append(eff)
         return out
+
+    def widest_message(self, q: Query) -> int:
+        """Elements of the widest message a calibration of ``q`` holds:
+        the most separator cells × carried γ lanes over its directed edges."""
+        dom = self.jt.domains
+        return max((int(np.prod([dom.get(a, 1) for a in self.jt.separator(u, v)
+                                 + self.gamma_carry(q, u, v)]))
+                    for u, v in self.jt.directed_edges()), default=1)
 
     def calibrate_many(self, queries: Sequence[Query], pin: bool = False,
                        batch: bool | None = None) -> tuple[list[ExecStats], list[Query]]:

@@ -96,6 +96,18 @@ class JTree:
             )
         return hit
 
+    def height(self, u: str, away_from: str | None) -> int:
+        """Edges on the longest downward path from u when edge (u,
+        away_from) is cut: 0 at a leaf, so a message u→away_from is computed
+        at calibration level ``height(u, away_from)``."""
+        memo = self._memo()
+        key = ("height", u, away_from)
+        hit = memo.get(key)
+        if hit is None:
+            memo[key] = hit = max((1 + self.height(w, u) for w in self.adj[u]
+                                   if w != away_from), default=0)
+        return hit
+
     def path(self, u: str, v: str) -> list[str]:
         parent = {u: None}
         stack = [u]

@@ -87,6 +87,16 @@ from .factor import Factor, contract
 # reference's static default)
 UNION_BUDGET = 512
 
+# ... and the most elements (separator cells × carried γ lanes) its widest
+# message may hold: past it the pass's messages are not merged, so a union
+# of narrow γs over a large separator (TPC-H's 15M orderkeys × 400 lanes,
+# 24 GB of float32, past int32 flat codes) is not materialized at all.  Each
+# query's own pass may hold wider messages (its γ alone over the separator).
+# Below the int32 bound, on TPC-H SF10 on an H100: 2^25 to 2^31 move
+# open_session by about 9 %, and 2^29 or more pin 1.9 GiB more (18.9 GiB
+# against 17.0 at 2^27, 16.7 at 2^25).
+UNION_MAX_ELEMS = 1 << 27
+
 # A level launch holds its members' rowwise fields (rows × carried γ lanes)
 # until it runs.  Past ROWWISE_MAX_ELEMS elements, rows × the widest (8 GiB of
 # float32, a tenth of an 80 GB card: the gathers and products around the

@@ -81,13 +81,13 @@ class Kernel:
         self._stream = torch._C._cuda_getCurrentRawStream
         return fn
 
-    def __call__(self, device: torch.device, *args, members: int = 1) -> None:
+    def __call__(self, device: torch.device, *args, members: int = 1, **attrs) -> None:
         """Launch on the current stream of ``device``; raise on a CUDA error.
-        ``members`` (the messages of a segment launch's table) is recorded
-        on the launch's ``kernels.launch`` span."""
+        ``members`` (the messages of a segment launch's table) and ``attrs``
+        are recorded on the launch's ``kernels.launch`` span."""
         fn = self._fn or self._bind()
         index = device.index
-        with trace.span("kernels.launch", symbol=self.symbol, members=members):
+        with trace.span("kernels.launch", symbol=self.symbol, members=members, **attrs):
             if torch.cuda.current_device() == index:
                 rc = fn(*args, self._stream(index))
             else:

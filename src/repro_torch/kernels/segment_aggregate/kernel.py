@@ -48,7 +48,7 @@ def _seg_recipe(recipe) -> _launch.SegRecipe:
     return r
 
 
-def launch(name: str, members: list, op: str) -> int:
+def launch(name: str, members: list, op: str, gather_rows: list | None = None) -> int:
     """Launch kernel ``name`` over ``members`` on the current stream of their
     device; return the launches made (one per ``launch.SEG_MAX_MEMBERS``
     members).
@@ -61,10 +61,12 @@ def launch(name: str, members: list, op: str) -> int:
     (``ops.row_order``) when that geometry is the sort regime, else None,
     and ``ordered`` whether ``values`` arrive in that order (sort only: the
     kernel then reads them in place).  The caller checks all of that.
-    Raises if a launch is refused.
+    ``gather_rows`` (traced calls: each member's, from its
+    ``kernels.segment`` record) puts the most of a launch's members on its
+    ``kernels.launch`` span.  Raises if a launch is refused.
     """
-    packed, recipes = [], []
-    for codes, values, out, geom, order, ordered in members:
+    packed, recipes, rows = [], [], []
+    for j, (codes, values, out, geom, order, ordered) in enumerate(members):
         n, (g, v) = codes.shape[0], out.shape
         fused = not isinstance(values, torch.Tensor)
         values_ptr = None if fused else values.data_ptr()
@@ -79,14 +81,18 @@ def launch(name: str, members: list, op: str) -> int:
             packed.append((geom, codes.data_ptr(), values_ptr, out.data_ptr(), None,
                            n, g, v, 0, 0, False))
         recipes.append(_seg_recipe(values) if fused else None)
+        if gather_rows is not None:
+            rows.append(gather_rows[j])
     if not packed:
         return 0
     device = members[0][0].device
     kern = KERNELS[name]
     launches = _launch.pack_members(packed, recipes)
-    for one in launches:
+    per = _launch.SEG_MAX_MEMBERS
+    for k, one in enumerate(launches):
         ws = kern.scratch(device, one)[0] if one.ws else None
         fused = None if one.recipes is None else ctypes.addressof(one.recipes)
+        span = {} if gather_rows is None else {"gather_rows": max(rows[k * per:(k + 1) * per])}
         kern(device, ctypes.addressof(one.table), fused, OP_CODES[op], ws,
-             members=one.table.count)
+             members=one.table.count, **span)
     return len(launches)

@@ -122,6 +122,14 @@ class Recipe:
     lanes: int = 1
 
     @property
+    def gathered(self) -> tuple[int, int]:
+        """(rows of its largest table read at a row's index, bytes of every
+        such table): a broadcast message's table (row 0) is not gathered."""
+        tables = [t for i, t, _ in self.messages if i is not None]
+        return (max((t.shape[0] for t in tables), default=0),
+                sum(t.numel() * t.element_size() for t in tables))
+
+    @property
     def nbytes(self) -> int:
         """Bytes the kernel reads of it: its row columns (lift, indices, σ
         codes), tables, lane columns and masks."""
@@ -221,9 +229,24 @@ def row_order(codes: torch.Tensor, num_segments: int, piece: int) -> RowOrder:
     """Build the :class:`RowOrder` of ``codes`` (N,) int32 on its device:
     one stable ``torch.sort`` and a few scans (one host sync for the item
     count)."""
+    return _cut(*_sort(codes, num_segments)[:2], num_segments, piece)
+
+
+def _sort(codes: torch.Tensor, num_segments: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The stable order of ``codes``: (perm (N,), offsets (G + 1,), the
+    rows of the longest segment)."""
     dev, g = codes.device, num_segments
     sorted_codes, perm = torch.sort(codes, stable=True)
     offsets = torch.searchsorted(sorted_codes, torch.arange(g + 1, dtype=codes.dtype, device=dev))
+    longest = int((offsets[1:] - offsets[:-1]).max()) if g else 0
+    return perm.to(torch.int32), offsets.to(torch.int32), longest
+
+
+def _cut(perm: torch.Tensor, offsets: torch.Tensor, num_segments: int, piece: int) -> RowOrder:
+    """The sort regime's work items over a stable order: each segment's
+    rows cut into pieces of ``piece`` rows."""
+    dev, g = perm.device, num_segments
+    offsets = offsets.long()
     counts = offsets[1:] - offsets[:-1]
     pieces = (counts + piece - 1) // piece
     multi = pieces > 1
@@ -239,18 +262,18 @@ def row_order(codes: torch.Tensor, num_segments: int, piece: int) -> RowOrder:
     slot = torch.full_like(split, -1)
     if n_splits:
         slot = torch.where(split >= 0, split_first[split.clamp_min(0)] + p, -1)
-    items = torch.stack([seg, begin.long(), end.long(), slot, split], 1)
+    items = torch.stack([seg, begin, end, slot, split], 1)
     splits = torch.stack([split_first, split_pieces, torch.nonzero(multi)[:, 0]], 1)
     table = torch.cat([items.flatten(), splits.flatten()]).to(torch.int32)
-    return RowOrder(perm=perm.to(torch.int32), offsets=offsets.to(torch.int32), table=table,
+    return RowOrder(perm=perm, offsets=offsets.to(torch.int32), table=table,
                     n_items=n_items, n_splits=n_splits, n_slots=n_slots, piece=piece)
 
 
 @dataclasses.dataclass
 class _Codes:
     """What is kept for one codes tensor (the base of the views handed in):
-    its row orders by (view, G, piece) and its inputs' code-ordered copies
-    by (view, input)."""
+    its stable orders by (view, G), each with its work items by piece, and
+    its inputs' code-ordered copies by (view, input)."""
 
     ref: weakref.ref
     orders: dict = dataclasses.field(default_factory=dict)
@@ -288,14 +311,21 @@ def cached_row_order(codes: torch.Tensor, num_segments: int, piece: int) -> RowO
     of) lives and is not written to: keyed by that tensor's identity, the
     view's offset and shape and the tensor's version counter.  A new
     relation version comes with a new codes tensor, so its order is built
-    anew."""
+    anew.  One sort serves every piece; pieces of at least the longest
+    segment's rows cut the same work items (one per segment), so they share
+    them."""
     entry, view = _entry(codes)
-    key = view + (num_segments, piece)
-    order, version = entry.orders.get(key, (None, None))
-    if order is None or version != codes._version:
-        order = row_order(codes, num_segments, piece)
+    key = view + (num_segments,)
+    version, sort, cuts = entry.orders.get(key, (None, None, None))
+    if sort is None or version != codes._version:
+        sort, cuts = _sort(codes, num_segments), {}
         ORDER_BUILDS["orders"] += 1
-        entry.orders[key] = order, codes._version
+        entry.orders[key] = codes._version, sort, cuts
+    perm, offsets, longest = sort
+    piece = min(piece, max(longest, 1))
+    order = cuts.get(piece)
+    if order is None:
+        order = cuts[piece] = _cut(perm, offsets, num_segments, piece)
     return order
 
 
@@ -333,7 +363,8 @@ def in_code_order(codes: torch.Tensor, order: RowOrder, tensors) -> tuple:
 
 def cached_bytes() -> dict:
     """Device bytes of the row orders and code-ordered copies kept now."""
-    orders = sum(order.nbytes for e in _ORDERS.values() for order, _ in e.orders.values())
+    orders = sum(perm.nbytes + offsets.nbytes + sum(o.table.nbytes for o in cuts.values())
+                 for e in _ORDERS.values() for _, (perm, offsets, _), cuts in e.orders.values())
     copies = sum(c.numel() * c.element_size() for e in _ORDERS.values()
                  for _, _, c in e.copies.values())
     return {"orders": orders, "copies": copies}
@@ -343,6 +374,7 @@ def _launch_members(name: str, items: list, op: str) -> None:
     """Launch kernel ``name`` over checked ``(codes, values, out, ordered)``
     CUDA messages and count its launches and messages."""
     members = []
+    gathers = [] if trace.on() else None    # each member's gather_rows, traced
     for codes, values, out, ordered in items:
         n, (g, v) = codes.shape[0], out.shape
         fused = isinstance(values, Recipe)
@@ -356,7 +388,9 @@ def _launch_members(name: str, items: list, op: str) -> None:
         form = "sort_ordered" if ordered else geom.name
         MEMBERS[form] += 1
         FUSED_MEMBERS[form] += fused
-        if trace.on():
+        if gathers is not None:
+            gather_rows, gather_bytes = values.gathered if fused else (0, 0)
+            gathers.append(gather_rows)
             trace.record("kernels.segment", kernel=name, n=n, g=g, v=v,
                          elem_bytes=4 if fused else values.element_size(),
                          regime=geom.name, ordered=bool(ordered),
@@ -364,8 +398,9 @@ def _launch_members(name: str, items: list, op: str) -> None:
                          table_bytes=order.table.numel() * order.table.element_size() if sort
                          else 0, fused=fused, msgs=len(values.messages) if fused else 0,
                          preds=len(values.preds) if fused else 0,
-                         recipe_bytes=values.nbytes if fused else 0)
-    LAUNCHES[name] += kernel.launch(name, members, op)
+                         recipe_bytes=values.nbytes if fused else 0,
+                         gather_rows=gather_rows, gather_bytes=gather_bytes)
+    LAUNCHES[name] += kernel.launch(name, members, op, gathers)
 
 
 def _plain(codes: torch.Tensor, values, num_segments: int, op: str,

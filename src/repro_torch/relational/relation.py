@@ -455,18 +455,29 @@ class Catalog:
         Codes are zero-padded to ``rel.row_bucket``: pad rows aggregate at
         index 0 but carry ⊕-identity lift values, so they contribute nothing.
         The cache key keeps the device; sharded plans block the cached
-        tensor per shard (:meth:`set_row_placement`).
+        tensor per shard (:meth:`set_row_placement`).  Several attributes'
+        codes are combined on ``device`` from each one's cached codes, row
+        major as ``flat_codes``: every partial index lies below the total,
+        so int32 holds it, and no pass over the rows runs on the host.
         """
         device = torch.device(device)
-        key = (rel.name, rel.version, tuple(attrs), str(device))
+        attrs = tuple(attrs)
+        key = (rel.name, rel.version, attrs, str(device))
         hit = self._dev_codes.get(key)
         if hit is None:
-            idx, total = rel.flat_codes(attrs)
-            if total > np.iinfo(np.int32).max:  # pragma: no cover — huge domains
+            total = int(np.prod([rel.domains[a] for a in attrs]))
+            if total > np.iinfo(np.int32).max:
                 raise ValueError(f"flat domain {total} overflows int32 codes")
-            out = np.zeros((rel.row_bucket,), np.int32)
-            out[: idx.size] = idx
-            hit = (torch.from_numpy(out).to(device), total)
+            if len(attrs) > 1:
+                out = self.dev_flat_codes(rel, attrs[:1], device)[0]
+                for a in attrs[1:]:
+                    out = out * rel.domains[a] + self.dev_flat_codes(rel, (a,), device)[0]
+                hit = (out, total)
+            else:
+                idx, _ = rel.flat_codes(attrs)
+                out = np.zeros((rel.row_bucket,), np.int32)
+                out[: idx.size] = idx
+                hit = (torch.from_numpy(out).to(device), total)
             self._dev_codes.put(key, hit)
         return hit
 

@@ -210,7 +210,7 @@ def test_member_records_match_the_contractions_tensors(monkeypatch, ring):
     (5000, 4000, 1, True, "sort"),      # values in code order
 ], ids=["thread", "warp", "sort", "sort_ordered"])
 def test_segment_records_match_the_launchs_messages(monkeypatch, n, g, v, ordered, regime):
-    monkeypatch.setattr(ops.kernel, "launch", lambda name, members, op: 1)
+    monkeypatch.setattr(ops.kernel, "launch", lambda name, members, op, gather_rows=None: 1)
     rng = np.random.default_rng(n + g)
     codes = torch.as_tensor(rng.integers(0, g, n).astype(np.int32))
     values = torch.zeros((n, v), dtype=torch.float32)
@@ -227,6 +227,7 @@ def test_segment_records_match_the_launchs_messages(monkeypatch, n, g, v, ordere
         "n_items": order.n_items if order else 0,
         "table_bytes": order.table.numel() * 4 if order else 0,
         "fused": False, "msgs": 0, "preds": 0, "recipe_bytes": 0,
+        "gather_rows": 0, "gather_bytes": 0,
     }
 
 
@@ -234,7 +235,7 @@ def test_fused_segment_record_carries_the_recipes_counts(monkeypatch):
     """A fused member's ``kernels.segment`` record says so, with its
     messages (K), σ predicates (P) and the bytes of its recipe, which it
     reads in place of an (N, V) slab."""
-    monkeypatch.setattr(ops.kernel, "launch", lambda name, members, op: 1)
+    monkeypatch.setattr(ops.kernel, "launch", lambda name, members, op, gather_rows=None: 1)
     rng = np.random.default_rng(3)
     n, g = 4000, 6
     i32 = lambda hi: torch.as_tensor(rng.integers(0, hi, n).astype(np.int32))  # noqa: E731
@@ -249,6 +250,46 @@ def test_fused_segment_record_carries_the_recipes_counts(monkeypatch):
         True, 2, 1, 12, "thread")
     # lift, index, σ codes (4 B a row each); the tables, lane columns and mask
     assert rec["recipe_bytes"] == rc.nbytes == 12 * n + 4 * (120 + 12 + 3 + 12) + 7
+
+
+def test_fused_members_and_their_launch_carry_the_tables_they_gather_from(monkeypatch):
+    """A fused member's ``kernels.segment`` record gives the rows of the
+    largest message table it reads at a row's index and the bytes of every
+    such table (a broadcast table, read at row 0, is not gathered; a slab
+    member gathers nothing); each ``kernels.launch`` span gives the most
+    rows a member of that launch gathers from."""
+    from repro_torch.kernels.segment_aggregate import kernel as seg_kernel
+
+    rng = np.random.default_rng(5)
+    n, g = 3000, 6
+    i32 = lambda hi: torch.as_tensor(rng.integers(0, hi, n).astype(np.int32))  # noqa: E731
+    lanes = torch.arange(8, dtype=torch.int32)
+    wide = ops.Recipe(torch.ones(n), ((i32(900), torch.ones(900, 2), lanes // 4),
+                                      (i32(40), torch.ones(40, 4), lanes % 4),
+                                      (None, torch.ones(1, 8), lanes)), lanes=8)
+    narrow = ops.Recipe(torch.ones(n), ((i32(40), torch.ones(40, 8), lanes),), lanes=8)
+    slab = torch.zeros((n, 8))
+    members = [(i32(g), rc, torch.zeros(g, 8), False) for rc in (wide, narrow, slab)]
+    calls = []
+    kern = launch.Kernel("segment_aggregate", [])
+    kern._fn = lambda *args: calls.append(args) or 0
+    kern._stream = lambda index: 7
+    monkeypatch.setattr(kern, "scratch", lambda device, one: (0, 0))
+    monkeypatch.setitem(seg_kernel.KERNELS, "segment_aggregate", kern)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(launch, "SEG_MAX_MEMBERS", 2)     # two launches: wide + narrow, slab
+    trace.enable()
+    ops._launch_members("segment_aggregate", members, "sum")
+    recs = trace.take()
+    segs = [r for r in recs if r.get("kind") == "kernels.segment"]
+    assert [(r["gather_rows"], r["gather_bytes"]) for r in segs] == [
+        (900, 4 * (900 * 2 + 40 * 4)), (40, 4 * 40 * 8), (0, 0)]
+    spans = [r["attrs"] for r in recs if r.get("name") == "kernels.launch"]
+    assert [(a["members"], a["gather_rows"]) for a in spans] == [(2, 900), (1, 0)]
+    assert len(calls) == 2
+    trace.disable()
+    ops._launch_members("segment_aggregate", members, "sum")
+    assert trace.take() == [] and len(calls) == 4
 
 
 def test_kernel_launch_span_carries_symbol_and_members(monkeypatch):
